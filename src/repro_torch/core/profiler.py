@@ -9,8 +9,9 @@ Two sources feed one profile, as in the reference's ``core/profiler.py``:
      primitive, so ``loop_iters`` stays 0;
   2. *pattern-site level* — the dispatch layer records every fusable call
      site with its tensor bytes, plus the reference's pseudo-sites
-     (``acc_mac``, ``acc_flops``, ``conv_epilogue``, ``pool_flops``,
-     ``pool_epilogue``, ``pool_int8``) for the patterns this package ports.
+     (``acc_mac``, ``acc_flops``, ``conv_epilogue``, ``dw_mac_flops``,
+     ``dw_epilogue``, ``sep_intermediate``, ``pool_flops``,
+     ``pool_epilogue``, ``pool_int8``).
 
 The model runs on fake tensors (meta-backed: shapes and dtypes, no data),
 so nothing is computed and no device is touched.  FLOP and byte totals for
@@ -32,7 +33,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.core import dispatch
 from repro_torch.kernels import pooling as _pk
 from repro_torch.kernels.common import (
-    conv_out_size, conv_residual_fusable, gemm_residual_fusable,
+    conv_out_size, conv_residual_fusable, depthwise_kernel_eligible,
+    gemm_residual_fusable, sep_kernel_eligible,
 )
 
 # ---------------------------------------------------------------------------
@@ -71,6 +73,20 @@ def _acc_mac_fusable(pattern, x, w, res, kwargs) -> bool:
     )
 
 
+def _n_post(args, kwargs, act) -> int:
+    """Post-ops an unfused conv epilogue runs: bias, scale, shift, act
+    (relu6 is two)."""
+    return (int(len(args) > 2 and args[2] is not None)
+            + int(kwargs.get("scale") is not None)
+            + int(kwargs.get("shift") is not None)
+            + (2 if act == "relu6" else int(act != "none")))
+
+
+def _out_hw(x, w, stride, padding) -> tuple[int, int]:
+    return (conv_out_size(x.shape[1], w.shape[0], stride, padding),
+            conv_out_size(x.shape[2], w.shape[1], stride, padding))
+
+
 def _record_pseudo_sites(s: list, pattern: str, args, kwargs) -> None:
     res = kwargs.get("residual")
     if (pattern in ("fused_conv", "matmul_epilogue") and res is not None
@@ -87,21 +103,39 @@ def _record_pseudo_sites(s: list, pattern: str, args, kwargs) -> None:
         padding = kwargs.get("padding", "SAME")
         if (x.ndim == 4 and padding in ("SAME", "VALID")
                 and kwargs.get("groups", 1) == 1):
-            kh, kw_, _, cout = w.shape
-            n, h, w_in, _ = x.shape
-            stride = kwargs.get("stride", 1)
-            ho = conv_out_size(h, kh, stride, padding)
-            wo = conv_out_size(w_in, kw_, stride, padding)
-            act = kwargs.get("act", "none")
-            n_post = (
-                int(len(args) > 2 and args[2] is not None)
-                + int(kwargs.get("scale") is not None)
-                + int(kwargs.get("shift") is not None)
-                + (2 if act == "relu6" else int(act != "none"))
-            )
+            ho, wo = _out_hw(x, w, kwargs.get("stride", 1), padding)
+            n_post = _n_post(args, kwargs, kwargs.get("act", "none"))
             if ho > 0 and wo > 0:
-                s.append(("conv_epilogue",
-                          int(2 * 4 * n * ho * wo * cout * n_post)))
+                s.append(("conv_epilogue", int(
+                    2 * 4 * x.shape[0] * ho * wo * w.shape[-1] * n_post)))
+    if pattern == "depthwise_conv" and len(args) >= 2:
+        # dw_mac: the per-channel MAC flops and the epilogue round-trips the
+        # kernel keeps in-register, credited where the kernel would run
+        x, w = args[0], args[1]
+        stride = kwargs.get("stride", 1)
+        padding = kwargs.get("padding", "SAME")
+        act = kwargs.get("act", "none")
+        if depthwise_kernel_eligible(x, w, stride=stride, padding=padding,
+                                     act=act):
+            kh, kw_, _, c = w.shape
+            ho, wo = _out_hw(x, w, stride, padding)
+            pix = x.shape[0] * ho * wo * c
+            s.append(("dw_mac_flops", int(2 * pix * kh * kw_)))
+            s.append(("dw_epilogue",
+                      int(2 * 4 * pix * _n_post(args, kwargs, act))))
+    if pattern == "sep_block" and len(args) >= 3:
+        # what the unfused separable block spills: the (N, Ho, Wo, C) f32
+        # depthwise output, written once and read once; a site the fused
+        # kernel declines decomposes and does round-trip it
+        x, w_dw, w_pw = args[0], args[1], args[2]
+        stride = kwargs.get("stride", 1)
+        padding = kwargs.get("padding", "SAME")
+        if sep_kernel_eligible(x, w_dw, w_pw, stride=stride, padding=padding,
+                               dw_act=kwargs.get("dw_act", "relu"),
+                               pw_act=kwargs.get("pw_act", "none")):
+            ho, wo = _out_hw(x, w_dw, stride, padding)
+            s.append(("sep_intermediate",
+                      int(2 * 4 * x.shape[0] * ho * wo * x.shape[-1])))
     if pattern == "pool" and args and isinstance(args[0], torch.Tensor):
         x = args[0]
         op = kwargs.get("op")

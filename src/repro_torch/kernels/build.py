@@ -35,6 +35,8 @@ SIGNATURES = {
     "marvel_fused_conv": (_P,) * 7 + (_I,) * 15 + (_P,),
     "marvel_windowed_pool": (_P, _P) + (_I,) * 10 + (_P,),
     "marvel_global_avgpool": (_P, _P, _I, _I, _I, _I, _P),
+    "marvel_depthwise_conv": (_P,) * 5 + (_I,) * 12 + (_P,),
+    "marvel_sep_block": (_P,) * 9 + (_I,) * 16 + (_P,),
 }
 
 _lock = threading.Lock()

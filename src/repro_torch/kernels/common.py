@@ -51,6 +51,36 @@ def conv_kernel_eligible(x, w, *, stride, padding, groups, act) -> bool:
             and conv_out_size(x.shape[2], w.shape[1], stride, padding) > 0)
 
 
+def depthwise_kernel_eligible(x, w, *, stride, padding, act) -> bool:
+    """Would ops._cuda_depthwise_conv run the depthwise kernel on this site
+    (vs the plain reference)?  True depthwise means HWIO weights
+    (KH, KW, 1, C) over a (N, H, W, C) x (channel multiplier 1; grouped but
+    not depthwise stays on the reference), SAME or VALID padding, an act
+    the epilogue implements and a non-empty output.  ONE predicate shared
+    by the dispatch wrapper and the profiler's dw credit mirror."""
+    xs, ws = tuple(getattr(x, "shape", ())), tuple(getattr(w, "shape", ()))
+    if (len(xs) != 4 or len(ws) != 4 or ws[2] != 1 or ws[3] != xs[-1]
+            or padding not in ("SAME", "VALID") or act not in EPILOGUE_ACTS):
+        return False
+    return (conv_out_size(xs[1], ws[0], stride, padding) > 0
+            and conv_out_size(xs[2], ws[1], stride, padding) > 0)
+
+
+def sep_kernel_eligible(x, w_dw, w_pw, *, stride, padding, dw_act,
+                        pw_act) -> bool:
+    """Would ops._cuda_sep_block run the fused separable-block kernel (vs
+    decomposing into its two stage wrappers)?  The depthwise stage must be
+    kernel-eligible and the pointwise weights a (1, 1, C, Cout) 1x1 over
+    x's channels, with an epilogue act.  Shared with the profiler's
+    ``sep_intermediate`` mirror."""
+    ps = tuple(getattr(w_pw, "shape", ()))
+    pw_1x1 = (len(ps) == 4 and ps[0] == ps[1] == 1
+              and ps[2] == tuple(getattr(x, "shape", (0,)))[-1])
+    return (pw_1x1 and pw_act in EPILOGUE_ACTS
+            and depthwise_kernel_eligible(x, w_dw, stride=stride,
+                                          padding=padding, act=dw_act))
+
+
 def conv_residual_fusable(x, w, res, *, stride, padding, groups, act) -> bool:
     """Is ``res`` an exactly-output-shaped skip tensor on a kernel-eligible
     conv site (the acc_mac epilogue's contract)?"""

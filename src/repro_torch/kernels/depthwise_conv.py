@@ -1,0 +1,206 @@
+"""dw_mac: int8 depthwise conv, and the fused separable block.
+
+Replace the TPU kernels ``src/repro/kernels/depthwise_conv.py::_dw_kernel``
+(``pl.pallas_call`` at ``depthwise_conv.py:107``, ``depthwise_conv_int8``)
+and ``depthwise_conv.py::_sep_kernel`` (``depthwise_conv.py:197``,
+``sep_block_int8``); the CUDA kernels are in ``csrc/depthwise_conv.cu``,
+whose header says what bounds them on the H100 and how their design
+answers that.
+
+The depthwise sums are int8 x int8 -> int32, exact; the per-channel dequant
+scale, bias, BN affine and act are pre-folded by the caller into one
+``(eff_scale, eff_bias)`` pair applied in f32.  The separable block applies
+that depthwise epilogue and act in f32, contracts the result in f32 against
+the int8 pointwise weights taken as f32 (as the reference does: not an int8
+MAC), then applies the pointwise ``(pw_scale, pw_bias)`` epilogue and act.
+
+:func:`depthwise_conv_int8` and :func:`sep_block_int8` are the wrappers: CPU
+tensors run the plain versions, CUDA tensors launch the kernels (each
+wrapper's ``launches`` counts them).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+from repro_torch.kernels.common import (
+    ACT_CODES, EPILOGUE_ACTS, check_operand, conv_out_size, runs_plain,
+    same_pads, split_k,
+)
+from repro_torch.kernels.ref import full_f32
+
+_INT32_MAX = 2**31 - 1
+_GRID_Y_MAX = 65535
+BM, BN, BC = 64, 64, 32  # sep_block's tile (csrc/depthwise_conv.cu)
+
+
+def _geometry(x_int8, w_taps, stride, padding):
+    _, h, w_in, c = x_int8.shape
+    kh, kw, wc = w_taps.shape
+    if wc != c:
+        raise ValueError(f"taps cover {wc} channels, x has {c}")
+    if padding not in ("SAME", "VALID"):
+        raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
+    ho = conv_out_size(h, kh, stride, padding)
+    wo = conv_out_size(w_in, kw, stride, padding)
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"degenerate depthwise output {ho}x{wo}")
+    return ho, wo, same_pads(h, kh, stride, padding), same_pads(
+        w_in, kw, stride, padding)
+
+
+def _dw_acc(x_int8, w_taps, stride, padding):
+    """The exact int32 depthwise sums, as f32: a float64 grouped conv holds
+    every sum exactly, then one rounding to f32 as the kernel's int32
+    accumulator gets."""
+    _, _, (top, bottom), (left, right) = _geometry(x_int8, w_taps, stride,
+                                                   padding)
+    xc = F.pad(x_int8.permute(0, 3, 1, 2).double(), (left, right, top, bottom))
+    acc = F.conv2d(xc, w_taps.permute(2, 0, 1).unsqueeze(1).double(),
+                   stride=stride, groups=x_int8.shape[-1])
+    return acc.permute(0, 2, 3, 1).float()
+
+
+def depthwise_conv_int8_plain(x_int8, w_int8, eff_scale, eff_bias, *,
+                              stride=1, padding="SAME", act="none"):
+    """The plain PyTorch version: exact integer depthwise sums, then the
+    f32 epilogue ``act(acc*eff_scale + eff_bias)``."""
+    acc = _dw_acc(x_int8, w_int8, stride, padding)
+    return EPILOGUE_ACTS[act](acc * eff_scale.float() + eff_bias.float())
+
+
+def sep_block_int8_plain(x_int8, w_dw_int8, dw_scale, dw_bias, w_pw_int8,
+                         pw_scale, pw_bias, *, stride=1, padding="SAME",
+                         dw_act="relu", pw_act="none"):
+    """The plain PyTorch version: the same depthwise tile and its f32
+    epilogue and act, an f32 product with the int8 pointwise weights as
+    f32, then the pointwise epilogue.  The product sums C in the reference
+    kernel's blocks of 128 channels, block after block, as its grid's
+    channel axis does: f32 addition is not associative, and MobileNetV2's
+    per-tensor int8 quantization turns a 1-ulp difference into a flipped
+    code downstream, so this order keeps a CPU forward on the reference's
+    rounding.  The CUDA kernel sums in its own order, within the stated
+    tolerance of this version."""
+    acc = _dw_acc(x_int8, w_dw_int8, stride, padding)
+    d = EPILOGUE_ACTS[dw_act](acc * dw_scale.float() + dw_bias.float())
+    n, ho, wo, c = d.shape
+    d2, wp = d.reshape(-1, c), w_pw_int8.float()
+    blk = 128  # BC of src/repro/kernels/depthwise_conv.py:43
+    with full_f32():
+        y = d2[:, :blk] @ wp[:blk]
+        for c0 in range(blk, c, blk):
+            y = y + d2[:, c0:c0 + blk] @ wp[c0:c0 + blk]
+    y = EPILOGUE_ACTS[pw_act](y * pw_scale.float() + pw_bias.float())
+    return y.reshape(n, ho, wo, -1)
+
+
+def _check_sizes(*numels):
+    if max(numels) > _INT32_MAX:
+        raise ValueError("operands exceed the kernel's 32-bit indexing")
+
+
+def _launch_dw(x_int8, w_int8, eff_scale, eff_bias, stride, padding, act):
+    n, h, w_in, c = x_int8.shape
+    kh, kw, _ = w_int8.shape
+    ho, wo, (top, _), (left, _) = _geometry(x_int8, w_int8, stride, padding)
+    _check_sizes(x_int8.numel(), n * ho * wo * c)
+    x_int8, w_int8 = x_int8.contiguous(), w_int8.contiguous()
+    es, eb = eff_scale.float().contiguous(), eff_bias.float().contiguous()
+    check_operand(x_int8, "x_int8", torch.int8, (n, h, w_in, c))
+    check_operand(w_int8, "w_int8", torch.int8, (kh, kw, c))
+    check_operand(es, "eff_scale", torch.float32, (c,))
+    check_operand(eb, "eff_bias", torch.float32, (c,))
+    out = torch.empty((n, ho, wo, c), dtype=torch.float32,
+                      device=x_int8.device)
+    with torch.cuda.device(x_int8.device):
+        status = build.lib().marvel_depthwise_conv(
+            x_int8.data_ptr(), w_int8.data_ptr(), es.data_ptr(),
+            eb.data_ptr(), out.data_ptr(), n, h, w_in, c, kh, kw, ho, wo,
+            stride, top, left, ACT_CODES[act], build.stream_ptr(x_int8.device))
+    build.check("depthwise_conv", status)
+    return out
+
+
+def _launch_sep(x_int8, w_dw_int8, dw_scale, dw_bias, w_pw_int8, pw_scale,
+                pw_bias, stride, padding, dw_act, pw_act):
+    n, h, w_in, c = x_int8.shape
+    kh, kw, _ = w_dw_int8.shape
+    cout = w_pw_int8.shape[-1]
+    ho, wo, (top, _), (left, _) = _geometry(x_int8, w_dw_int8, stride,
+                                            padding)
+    m = n * ho * wo
+    _check_sizes(x_int8.numel(), m * cout, w_pw_int8.numel())
+    if -(-m // BM) > _GRID_Y_MAX:
+        raise ValueError(f"{m} output pixels exceed the kernel's grid")
+    x_int8 = x_int8.contiguous()
+    wd, wp = w_dw_int8.contiguous(), w_pw_int8.contiguous()
+    ds, db = dw_scale.float().contiguous(), dw_bias.float().contiguous()
+    ps, pb = pw_scale.float().contiguous(), pw_bias.float().contiguous()
+    check_operand(x_int8, "x_int8", torch.int8, (n, h, w_in, c))
+    check_operand(wd, "w_dw_int8", torch.int8, (kh, kw, c))
+    check_operand(ds, "dw_scale", torch.float32, (c,))
+    check_operand(db, "dw_bias", torch.float32, (c,))
+    check_operand(wp, "w_pw_int8", torch.int8, (c, cout))
+    check_operand(ps, "pw_scale", torch.float32, (cout,))
+    check_operand(pb, "pw_bias", torch.float32, (cout,))
+    out = torch.empty((n, ho, wo, cout), dtype=torch.float32,
+                      device=x_int8.device)
+    c_iters = -(-c // BC)
+    splits = split_k(-(-m // BM) * -(-cout // BN), c_iters,
+                     build.sm_count(x_int8.device))
+    per = -(-c_iters // splits) * BC
+    ws = (torch.empty((splits, m, cout), dtype=torch.float32,
+                      device=x_int8.device) if splits > 1 else None)
+    with torch.cuda.device(x_int8.device):
+        status = build.lib().marvel_sep_block(
+            x_int8.data_ptr(), wd.data_ptr(), ds.data_ptr(), db.data_ptr(),
+            wp.data_ptr(), ps.data_ptr(), pb.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), n, h, w_in, c, kh, kw,
+            ho, wo, stride, top, left, cout, splits, per, ACT_CODES[dw_act],
+            ACT_CODES[pw_act], build.stream_ptr(x_int8.device))
+    build.check("sep_block", status)
+    return out
+
+
+def depthwise_conv_int8(x_int8, w_int8, eff_scale, eff_bias, *, stride=1,
+                        padding="SAME", act="none"):
+    """x: (N, H, W, C) int8; w: (KH, KW, C) int8 (one tap stack per
+    channel); eff_scale / eff_bias: (C,) f32 -> ``act(acc*eff_scale +
+    eff_bias)`` as (N, Ho, Wo, C) f32.  Acts: none, relu, relu6."""
+    if act not in EPILOGUE_ACTS:
+        raise ValueError(f"depthwise epilogue has no act {act!r}")
+    if runs_plain(x_int8, w_int8, eff_scale, eff_bias):
+        return depthwise_conv_int8_plain(x_int8, w_int8, eff_scale,
+                                         eff_bias, stride=stride,
+                                         padding=padding, act=act)
+    out = _launch_dw(x_int8, w_int8, eff_scale, eff_bias, stride, padding,
+                     act)
+    depthwise_conv_int8.launches += 1
+    return out
+
+
+def sep_block_int8(x_int8, w_dw_int8, dw_scale, dw_bias, w_pw_int8,
+                   pw_scale, pw_bias, *, stride=1, padding="SAME",
+                   dw_act="relu", pw_act="none"):
+    """Fused depthwise -> 1x1 pointwise, one device-memory write.
+
+    x: (N, H, W, C) int8; w_dw: (KH, KW, C) int8; dw_scale / dw_bias: (C,)
+    f32; w_pw: (C, Cout) int8; pw_scale / pw_bias: (Cout,) f32 ->
+    ``pw_act((dw_act(dwconv(x)*dw_scale + dw_bias) @ w_pw)*pw_scale +
+    pw_bias)`` as (N, Ho, Wo, Cout) f32."""
+    if dw_act not in EPILOGUE_ACTS or pw_act not in EPILOGUE_ACTS:
+        raise ValueError(f"sep_block epilogue has no act {dw_act!r} or "
+                         f"{pw_act!r}")
+    args = (x_int8, w_dw_int8, dw_scale, dw_bias, w_pw_int8, pw_scale,
+            pw_bias)
+    if runs_plain(*args):
+        return sep_block_int8_plain(*args, stride=stride, padding=padding,
+                                    dw_act=dw_act, pw_act=pw_act)
+    out = _launch_sep(*args, stride, padding, dw_act, pw_act)
+    sep_block_int8.launches += 1
+    return out
+
+
+depthwise_conv_int8.launches = 0
+sep_block_int8.launches = 0

@@ -19,6 +19,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import (
     ACT_CODES, check_operand, runs_plain, split_k,
 )
+from repro_torch.kernels.ref import full_f32
 from repro_torch.models.layers import ACTS
 
 _INT32_MAX = 2**31 - 1
@@ -38,7 +39,8 @@ def _prepare(x, w, b, scale, shift, residual):
 
 
 def _plain(x2, w, es, eb, r2, act):
-    y = (x2.float() @ w.float()) * es + eb
+    with full_f32():
+        y = (x2.float() @ w.float()) * es + eb
     if r2 is not None:
         y = y + r2.float()
     return ACTS[act](y)

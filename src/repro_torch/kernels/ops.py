@@ -18,12 +18,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import dispatch
+from repro_torch.kernels import depthwise_conv as dw
 from repro_torch.kernels import fused_conv as fc
 from repro_torch.kernels import matmul_epilogue as me
 from repro_torch.kernels import pooling as pk
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import (
-    conv_kernel_eligible, conv_residual_fusable, gemm_residual_fusable,
+    conv_kernel_eligible, conv_residual_fusable, depthwise_kernel_eligible,
+    gemm_residual_fusable, sep_kernel_eligible,
 )
 
 
@@ -71,6 +73,78 @@ def _cuda_fused_conv(x, w, b=None, *, stride=1, padding="SAME", groups=1,
     return out.to(x.dtype)
 
 
+def _cuda_depthwise_conv(x, w, b=None, *, stride=1, padding="SAME",
+                         act="none", scale=None, shift=None):
+    """dw_mac: quantize to int8 on the fly, run the per-channel MAC kernel.
+
+    Non-depthwise weight shapes, exotic paddings, acts the epilogue lacks
+    and degenerate outputs stay on the plain reference (still one dispatch
+    site)."""
+    if getattr(w, "ndim", 0) == 3:  # the squeezed (KH, KW, C) tap stack:
+        w = w[:, :, None, :]  # normalize to HWIO
+    if not depthwise_kernel_eligible(x, w, stride=stride, padding=padding,
+                                     act=act):
+        groups = 1  # grouped but not depthwise: groups from the HWIO shape
+        if (x.ndim == 4 and getattr(w, "ndim", 0) == 4 and w.shape[2]
+                and x.shape[-1] % w.shape[2] == 0):
+            groups = x.shape[-1] // w.shape[2]
+        return ref.fused_conv_ref(
+            x, w, b, stride=stride, padding=padding, groups=groups, act=act,
+            scale=scale, shift=shift,
+        )
+    c = x.shape[-1]
+    x_int8, xs = _quant_int8(x)
+    w_int8, ws = _quant_int8(w[:, :, 0, :], axes=(0, 1))  # (KH, KW, C)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dq = xs * ws  # per-channel dequant, (C,)
+    bias = torch.zeros(c, **f32) if b is None else b.float()
+    s = torch.ones(c, **f32) if scale is None else scale.float()
+    t = torch.zeros(c, **f32) if shift is None else shift.float()
+    # same fold as fused_conv: act(acc*(dq*s) + (bias*s + t))
+    out = dw.depthwise_conv_int8(x_int8, w_int8, dq * s, bias * s + t,
+                                 stride=stride, padding=padding, act=act)
+    return out.to(x.dtype)
+
+
+def _cuda_sep_block(x, w_dw, w_pw, *, stride=1, padding="SAME",
+                    dw_scale=None, dw_shift=None, dw_act="relu",
+                    pw_bias=None, pw_scale=None, pw_shift=None,
+                    pw_act="none"):
+    """sep_block: fused depthwise -> pointwise, one device-memory write.
+
+    A site the fused kernel declines (non-depthwise dw weights, non-1x1
+    pointwise, exotic padding or acts, degenerate output) decomposes into
+    the two stage wrappers, so the depthwise and conv kernels still run
+    where they can."""
+    if not sep_kernel_eligible(x, w_dw, w_pw, stride=stride,
+                               padding=padding, dw_act=dw_act,
+                               pw_act=pw_act):
+        y = _cuda_depthwise_conv(x, w_dw, None, stride=stride,
+                                 padding=padding, act=dw_act, scale=dw_scale,
+                                 shift=dw_shift)
+        return _cuda_fused_conv(y, w_pw, pw_bias, stride=1, padding="SAME",
+                                groups=1, act=pw_act, scale=pw_scale,
+                                shift=pw_shift)
+    c, cout = x.shape[-1], w_pw.shape[-1]
+    x_int8, xs = _quant_int8(x)
+    wd_int8, wds = _quant_int8(w_dw[:, :, 0, :], axes=(0, 1))
+    wp_int8, wps = _quant_int8(w_pw.reshape(c, cout), axes=(0,))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ds = torch.ones(c, **f32) if dw_scale is None else dw_scale.float()
+    dt = torch.zeros(c, **f32) if dw_shift is None else dw_shift.float()
+    pb = torch.zeros(cout, **f32) if pw_bias is None else pw_bias.float()
+    ps = torch.ones(cout, **f32) if pw_scale is None else pw_scale.float()
+    pt = torch.zeros(cout, **f32) if pw_shift is None else pw_shift.float()
+    # the reference's folds, in its order: dw_act(acc_dw*(xs*wds*ds) + dt);
+    # the pointwise stage contracts that f32 tile against the int8 weights,
+    # so its fold is pw_act(acc_pw*(wps*ps) + (pb*ps + pt))
+    out = dw.sep_block_int8(
+        x_int8, wd_int8, xs * wds * ds, dt, wp_int8, wps * ps, pb * ps + pt,
+        stride=stride, padding=padding, dw_act=dw_act, pw_act=pw_act,
+    )
+    return out.to(x.dtype)
+
+
 def _cuda_matmul_epilogue(x, w, b=None, act="none", scale=None, shift=None,
                           residual=None):
     if residual is not None and not gemm_residual_fusable(x, w, residual):
@@ -98,6 +172,10 @@ def register():
     dispatch.register_impl("matmul_epilogue", "cuda", _cuda_matmul_epilogue,
                            platforms=cuda)
     dispatch.register_impl("pool", "cuda", _cuda_pool, platforms=cuda)
+    dispatch.register_impl("depthwise_conv", "cuda", _cuda_depthwise_conv,
+                           platforms=cuda)
+    dispatch.register_impl("sep_block", "cuda", _cuda_sep_block,
+                           platforms=cuda)
 
 
 register()

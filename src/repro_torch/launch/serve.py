@@ -58,7 +58,8 @@ def serve_cnn(args) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--cnn", required=True,
-                    help="CNN to serve (lenet5, vgg16, resnet50)")
+                    help="CNN to serve (lenet5, mobilenetv1, vgg16, resnet50, "
+                         "mobilenetv2, densenet121)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--max-delay-ms", type=float, default=2.0)

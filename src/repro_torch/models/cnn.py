@@ -1,12 +1,14 @@
-"""The paper's own model class: CNNs (this slice: LeNet-5*, VGG16, ResNet50).
+"""The paper's own model class: its six CNNs (LeNet-5*, MobileNetV1, VGG16,
+ResNet50, MobileNetV2, DenseNet121).
 
 Same graphs, layouts and dispatch sites as the reference's
 ``src/repro/models/cnn.py``: NHWC activations, HWIO weights, BN folded to a
 per-channel affine (``scale``/``shift``), 64x64x3 inputs with a 2-class head
 (LeNet-5*: 28x28x1, 10 classes).  Convs, dense layers and pools go through
 the dispatch patterns, 1x1 stride-1 convs dispatch as ``matmul_epilogue``
-GEMMs, and ResNet50's skip-adds ride the conv/GEMM epilogues as
-``residual=`` operands.
+GEMMs, ResNet50's skip-adds ride the conv/GEMM epilogues as ``residual=``
+operands, and the mobile nets emit each depthwise-separable block as one
+``sep_block`` site (fused at v3+, its two stage patterns below).
 
 Parameters are plain nested dicts/lists of tensors.  ``init(gen)`` draws
 them from a ``torch.Generator`` with the reference's shapes and
@@ -62,8 +64,51 @@ def conv2d(x, w, b=None, *, stride=1, padding="SAME", groups=1, act="none",
     )
 
 
+def _depthwise_ref(x, w, b, *, stride, padding, act, scale=None, shift=None):
+    return _conv_ref(x, w, b, stride=stride, padding=padding,
+                     groups=x.shape[-1], act=act, scale=scale, shift=shift)
+
+
+def depthwise_conv2d(x, w, b=None, *, stride=1, padding="SAME", act="none",
+                     scale=None, shift=None):
+    """Depthwise conv (+ fused epilogue): one dw_mac site.  ``groups ==
+    channels`` is implied by the (KH, KW, 1, C) weight shape."""
+    return dispatch.call(
+        "depthwise_conv", _depthwise_ref, x, w, b,
+        stride=stride, padding=padding, act=act, scale=scale, shift=shift,
+    )
+
+
+def _sep_block_ref(x, w_dw, w_pw, *, stride, padding, dw_scale, dw_shift,
+                   dw_act, pw_bias, pw_scale, pw_shift, pw_act):
+    # the unfused form dispatches its two stage patterns, so below v3 the
+    # depthwise (v2+) and conv (v1+) kernels still apply; the pointwise 1x1
+    # goes through fused_conv, as in the reference, not matmul_epilogue
+    y = depthwise_conv2d(x, w_dw, stride=stride, padding=padding, act=dw_act,
+                         scale=dw_scale, shift=dw_shift)
+    return dispatch.call(
+        "fused_conv", _conv_ref, y, w_pw, pw_bias, stride=1, padding="SAME",
+        groups=1, act=pw_act, scale=pw_scale, shift=pw_shift,
+    )
+
+
+def sep_block(x, w_dw, w_pw, *, stride=1, padding="SAME", dw_scale=None,
+              dw_shift=None, dw_act="relu", pw_bias=None, pw_scale=None,
+              pw_shift=None, pw_act="none"):
+    """Depthwise-separable block (dw 3x3 -> 1x1 pw) as ONE dispatch site:
+    fused at v3+ (the depthwise output never reaches device memory), the
+    two-stage decomposition of :func:`_sep_block_ref` below."""
+    return dispatch.call(
+        "sep_block", _sep_block_ref, x, w_dw, w_pw,
+        stride=stride, padding=padding, dw_scale=dw_scale, dw_shift=dw_shift,
+        dw_act=dw_act, pw_bias=pw_bias, pw_scale=pw_scale, pw_shift=pw_shift,
+        pw_act=pw_act,
+    )
+
+
 def _dense_ref(x, w, b, *, act, scale=None, shift=None, residual=None):
-    y = x @ w
+    with ref.full_f32():
+        y = x @ w
     if b is not None:
         y = y + b
     if scale is not None:
@@ -96,6 +141,15 @@ def maxpool(x, k=2, stride=2):
 def avgpool_global(x):
     """Global average pool (N, H, W, C) -> (N, C): one pool site."""
     return dispatch.call("pool", _pool_ref, x, op="global_avg")
+
+
+def avgpool2(x):
+    """2x2 stride-2 average pool (VALID): one pool site."""
+    return dispatch.call("pool", _pool_ref, x, op="avg", k=2, stride=2)
+
+
+def _affine(x, s, b):  # folded batchnorm
+    return x * s + b
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +192,49 @@ def lenet5_apply(p, x):
                act="relu")  # -> 4x4x32
     x = x.reshape(x.shape[0], -1)
     return dense(x, p["fc"]["w"], p["fc"]["b"])
+
+
+# ---------------------------------------------------------------------------
+# MobileNetV1 (depthwise separable; width 1.0, 64x64 input, 2-class head)
+# ---------------------------------------------------------------------------
+
+_MBV1_CFG = [  # (stride, cout) for each dw-separable block
+    (1, 64), (2, 128), (1, 128), (2, 256), (1, 256),
+    (2, 512), (1, 512), (1, 512), (1, 512), (1, 512), (1, 512),
+    (2, 1024), (1, 1024),
+]
+
+
+def mobilenetv1_init(gen, device="cpu"):
+    p = {"stem": {"w": _conv_init(gen, 3, 3, 3, 32, device),
+                  "bn": _bn_init(32, device)}}
+    cin = 32
+    blocks = []
+    for _, cout in _MBV1_CFG:
+        blocks.append({
+            "dw": {"w": _conv_init(gen, 3, 3, cin, cin, device, groups=cin),
+                   "bn": _bn_init(cin, device)},
+            "pw": {"w": _conv_init(gen, 1, 1, cin, cout, device),
+                   "bn": _bn_init(cout, device)},
+        })
+        cin = cout
+    p["blocks"] = blocks
+    p["head"] = {"w": dense_init(gen, (cin, 2), device=device),
+                 "b": torch.zeros(2, device=device)}
+    return p
+
+
+def mobilenetv1_apply(p, x):
+    x = conv2d(x, p["stem"]["w"], stride=2, scale=p["stem"]["bn"]["s"],
+               shift=p["stem"]["bn"]["b"], act="relu")
+    for blk, (stride, _) in zip(p["blocks"], _MBV1_CFG):
+        x = sep_block(x, blk["dw"]["w"], blk["pw"]["w"], stride=stride,
+                      dw_scale=blk["dw"]["bn"]["s"],
+                      dw_shift=blk["dw"]["bn"]["b"], dw_act="relu",
+                      pw_scale=blk["pw"]["bn"]["s"],
+                      pw_shift=blk["pw"]["bn"]["b"], pw_act="relu")
+    x = avgpool_global(x)
+    return dense(x, p["head"]["w"], p["head"]["b"])
 
 
 # ---------------------------------------------------------------------------
@@ -241,21 +338,152 @@ def resnet50_apply(p, x):
 
 
 # ---------------------------------------------------------------------------
+# MobileNetV2 (inverted residuals)
+# ---------------------------------------------------------------------------
+
+_MBV2_CFG = [  # (expand, cout, n, stride)
+    (1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2),
+    (6, 64, 4, 2), (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1),
+]
+# flattened per-block (expand, stride)
+_MBV2_FLAT = [
+    (expand, stride if b == 0 else 1)
+    for expand, cout, n, stride in _MBV2_CFG
+    for b in range(n)
+]
+
+
+def mobilenetv2_init(gen, device="cpu"):
+    p = {"stem": {"w": _conv_init(gen, 3, 3, 3, 32, device),
+                  "bn": _bn_init(32, device)}}
+    cin = 32
+    blocks = []
+    for expand, cout, n, _ in _MBV2_CFG:
+        for _ in range(n):
+            mid = cin * expand
+            blk = {}
+            if expand != 1:
+                blk["ex"] = {"w": _conv_init(gen, 1, 1, cin, mid, device),
+                             "bn": _bn_init(mid, device)}
+            blk["dw"] = {"w": _conv_init(gen, 3, 3, mid, mid, device,
+                                         groups=mid),
+                         "bn": _bn_init(mid, device)}
+            blk["pw"] = {"w": _conv_init(gen, 1, 1, mid, cout, device),
+                         "bn": _bn_init(cout, device)}
+            blocks.append(blk)
+            cin = cout
+    p["blocks"] = blocks
+    p["last"] = {"w": _conv_init(gen, 1, 1, cin, 1280, device),
+                 "bn": _bn_init(1280, device)}
+    p["head"] = {"w": dense_init(gen, (1280, 2), device=device),
+                 "b": torch.zeros(2, device=device)}
+    return p
+
+
+def mobilenetv2_apply(p, x):
+    x = conv2d(x, p["stem"]["w"], stride=2, scale=p["stem"]["bn"]["s"],
+               shift=p["stem"]["bn"]["b"], act="relu6")
+    for blk, (expand, stride) in zip(p["blocks"], _MBV2_FLAT):
+        res = x
+        y = x
+        if expand != 1:
+            y = conv2d(y, blk["ex"]["w"], scale=blk["ex"]["bn"]["s"],
+                       shift=blk["ex"]["bn"]["b"], act="relu6")
+        y = sep_block(y, blk["dw"]["w"], blk["pw"]["w"], stride=stride,
+                      dw_scale=blk["dw"]["bn"]["s"],
+                      dw_shift=blk["dw"]["bn"]["b"], dw_act="relu6",
+                      pw_scale=blk["pw"]["bn"]["s"],
+                      pw_shift=blk["pw"]["bn"]["b"], pw_act="none")
+        # the skip-add is a plain add outside the sep_block site
+        if stride == 1 and res.shape == y.shape:
+            y = y + res
+        x = y
+    x = conv2d(x, p["last"]["w"], scale=p["last"]["bn"]["s"],
+               shift=p["last"]["bn"]["b"], act="relu6")
+    x = avgpool_global(x)
+    return dense(x, p["head"]["w"], p["head"]["b"])
+
+
+# ---------------------------------------------------------------------------
+# DenseNet121 (growth 32)
+# ---------------------------------------------------------------------------
+
+_DN_CFG = [6, 12, 24, 16]
+_GROWTH = 32
+
+
+def densenet121_init(gen, device="cpu"):
+    p = {"stem": {"w": _conv_init(gen, 7, 7, 3, 64, device),
+                  "bn": _bn_init(64, device)}}
+    cin = 64
+    blocks = []
+    for bi, n_layers in enumerate(_DN_CFG):
+        layers_ = []
+        for _ in range(n_layers):
+            layers_.append({
+                "bn1": _bn_init(cin, device),
+                "c1": {"w": _conv_init(gen, 1, 1, cin, 4 * _GROWTH, device)},
+                "bn2": _bn_init(4 * _GROWTH, device),
+                "c2": {"w": _conv_init(gen, 3, 3, 4 * _GROWTH, _GROWTH,
+                                       device)},
+            })
+            cin += _GROWTH
+        block = {"layers": layers_}
+        if bi < len(_DN_CFG) - 1:
+            block["trans"] = {"bn": _bn_init(cin, device),
+                              "w": _conv_init(gen, 1, 1, cin, cin // 2,
+                                              device)}
+            cin = cin // 2
+        blocks.append(block)
+    p["blocks"] = blocks
+    p["bn_f"] = _bn_init(cin, device)
+    p["head"] = {"w": dense_init(gen, (cin, 2), device=device),
+                 "b": torch.zeros(2, device=device)}
+    return p
+
+
+def densenet121_apply(p, x):
+    # the stem is the only post-conv BN + act chain; the dense layers are
+    # pre-activation (BN-relu-conv), and that BN-relu and the channel concat
+    # stay outside any dispatch site
+    x = conv2d(x, p["stem"]["w"], stride=2, scale=p["stem"]["bn"]["s"],
+               shift=p["stem"]["bn"]["b"], act="relu")
+    x = maxpool(x, 3, 2)
+    for block in p["blocks"]:
+        for lyr in block["layers"]:
+            y = ACTS["relu"](_affine(x, lyr["bn1"]["s"], lyr["bn1"]["b"]))
+            y = conv2d(y, lyr["c1"]["w"])
+            y = ACTS["relu"](_affine(y, lyr["bn2"]["s"], lyr["bn2"]["b"]))
+            y = conv2d(y, lyr["c2"]["w"])
+            x = torch.cat([x, y], dim=-1)
+        if "trans" in block:
+            x = ACTS["relu"](_affine(x, block["trans"]["bn"]["s"],
+                                     block["trans"]["bn"]["b"]))
+            x = conv2d(x, block["trans"]["w"])
+            x = avgpool2(x)
+    x = ACTS["relu"](_affine(x, p["bn_f"]["s"], p["bn_f"]["b"]))
+    x = avgpool_global(x)
+    return dense(x, p["head"]["w"], p["head"]["b"])
+
+
+# ---------------------------------------------------------------------------
 # registry + weights from the reference
 # ---------------------------------------------------------------------------
 
 CNN_MODELS = {
     "lenet5": (lenet5_init, lenet5_apply, (28, 28, 1)),
+    "mobilenetv1": (mobilenetv1_init, mobilenetv1_apply, (64, 64, 3)),
     "resnet50": (resnet50_init, resnet50_apply, (64, 64, 3)),
     "vgg16": (vgg16_init, vgg16_apply, (64, 64, 3)),
+    "mobilenetv2": (mobilenetv2_init, mobilenetv2_apply, (64, 64, 3)),
+    "densenet121": (densenet121_init, densenet121_apply, (64, 64, 3)),
 }
 
 
 def get_cnn(name: str):
     """(init, apply, input shape) of a ported CNN."""
     if name not in CNN_MODELS:
-        raise KeyError(f"unknown or not yet ported CNN {name!r}; "
-                       f"ported: {sorted(CNN_MODELS)}")
+        raise KeyError(f"unknown CNN {name!r}; known: {sorted(CNN_MODELS)}")
     return CNN_MODELS[name]
 
 

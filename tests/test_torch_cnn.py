@@ -1,4 +1,4 @@
-"""The port's CNN slice against the reference, on the CPU.
+"""The port's CNNs against the reference, on the CPU.
 
 LeNet-5* (native 28x28x1) and ResNet50 at full width and its native
 64x64x3 input, batch 2, with the reference's own weights carried across
@@ -6,9 +6,11 @@ through numpy: the port's logits match the reference's at v0 (relative L2
 <= 1e-4: f32 sums in another order) and at v4 on the kernels (``cuda``
 backend, whose wrappers run their plain versions on CPU tensors, against
 the reference's ``pallas`` backend in interpret mode; relative L2 <= 1e-3).
-The profiler's site counts, the class and the recommended extensions equal
-the reference's; and at v4 every conv, GEMM and pool site reaches its
-kernel wrapper with no plain fallback.
+For all six CNNs the profiler's site counts, the class and the recommended
+extensions equal the reference's; and at v4 every conv, GEMM, pool,
+depthwise and separable-block site reaches its kernel wrapper with no
+plain fallback.  The mobile nets' and DenseNet121's logits are held in
+``test_torch_mobile.py``.
 """
 import pytest
 
@@ -27,6 +29,7 @@ from repro_torch.core import classes as tclasses  # noqa: E402
 from repro_torch.core import dispatch as tdispatch  # noqa: E402
 from repro_torch.core import profiler as tprofiler  # noqa: E402
 from repro_torch.core.extensions import resolve_table as tresolve  # noqa: E402
+from repro_torch.kernels import depthwise_conv as tdw  # noqa: E402
 from repro_torch.kernels import fused_conv as tfc  # noqa: E402
 from repro_torch.kernels import matmul_epilogue as tme  # noqa: E402
 from repro_torch.kernels import pooling as tpk  # noqa: E402
@@ -34,6 +37,12 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
 
 V0_TOL, V4_TOL = 1e-4, 1e-3
+SIX = ["lenet5", "vgg16", "resnet50", "mobilenetv1", "mobilenetv2",
+       "densenet121"]
+# kernel launches per v4 forward: (fused_conv, matmul_epilogue, pool,
+# sep_block), as the reference dispatches them
+V4_CALLS = {"resnet50": (20, 34, 2, 0), "mobilenetv1": (1, 1, 1, 13),
+            "mobilenetv2": (1, 18, 1, 17), "densenet121": (59, 62, 5, 0)}
 
 
 def rel_l2(a, b):
@@ -54,7 +63,8 @@ def reference():
                                             init(jax.random.PRNGKey(0)))
             x = np.random.default_rng(1).standard_normal(
                 (2, *in_shape)).astype(np.float32)
-            v0 = np.asarray(apply(params, jnp.asarray(x)))
+            # jitted: the same v0 logits as eager, several times faster
+            v0 = np.asarray(jax.jit(apply)(params, jnp.asarray(x)))
             with jdispatch.use_table(jresolve("v4", "pallas",
                                               model_class="cnn")):
                 v4 = np.asarray(apply(params, jnp.asarray(x)))
@@ -78,7 +88,7 @@ def test_logits_match_reference_at_same_level(reference, name, level):
     assert rel_l2(got, want[level]) <= tol, (name, level)
 
 
-@pytest.mark.parametrize("name", ["lenet5", "vgg16", "resnet50"])
+@pytest.mark.parametrize("name", SIX)
 def test_profile_matches_reference(name):
     init, apply, in_shape = jcnn.get_cnn(name)
     params = jax.tree_util.tree_map(np.asarray, init(jax.random.PRNGKey(0)))
@@ -95,17 +105,18 @@ def test_profile_matches_reference(name):
     assert tclasses.recommend(got) == jclasses.recommend(want)
 
 
-@pytest.mark.parametrize("name", ["lenet5", "vgg16", "resnet50"])
+@pytest.mark.parametrize("name", SIX)
 def test_v4_dispatch_zero_baseline_conv_and_pool_sites(name, monkeypatch):
-    """At v4 on the cuda backend every conv, GEMM and pool site reaches its
-    kernel wrapper; the plain references inside the dispatch wrappers are
-    never taken."""
+    """At v4 on the cuda backend every conv, GEMM, pool and separable-block
+    site reaches its kernel wrapper; the plain references inside the
+    dispatch wrappers are never taken.  The baseline profile records each
+    separable block's two stage sites too, which at v4 run fused."""
     init, apply, in_shape = tcnn.get_cnn(name)
     p = init(torch.Generator().manual_seed(0))
     x = torch.zeros((1, *in_shape))
     sites = tprofiler.profile_fn(lambda x: apply(p, x), x).site_counts
 
-    calls = {"conv": 0, "gemm": 0, "pool": 0}
+    calls = {"conv": 0, "gemm": 0, "pool": 0, "dw": 0, "sep": 0}
     fallbacks = []
 
     def counting(bucket, real):
@@ -120,6 +131,10 @@ def test_v4_dispatch_zero_baseline_conv_and_pool_sites(name, monkeypatch):
                         counting("gemm", tme.matmul_epilogue))
     for kname in ("windowed_pool", "global_avgpool"):
         monkeypatch.setattr(tpk, kname, counting("pool", getattr(tpk, kname)))
+    monkeypatch.setattr(tdw, "depthwise_conv_int8",
+                        counting("dw", tdw.depthwise_conv_int8))
+    monkeypatch.setattr(tdw, "sep_block_int8",
+                        counting("sep", tdw.sep_block_int8))
     for rname in ("fused_conv_ref", "pool_ref", "matmul_epilogue_ref",
                   "conv_nhwc"):
         real = getattr(tref, rname)
@@ -132,15 +147,19 @@ def test_v4_dispatch_zero_baseline_conv_and_pool_sites(name, monkeypatch):
         apply(p, x)
 
     assert not fallbacks, fallbacks
-    assert calls["conv"] == sites["fused_conv"]
+    assert calls["conv"] == sites["fused_conv"] - sites["sep_block"]
     assert calls["gemm"] == sites["matmul_epilogue"]
     assert calls["pool"] == sites["pool"]
+    assert calls["sep"] == sites["sep_block"]
+    assert calls["dw"] == sites["depthwise_conv"] - sites["sep_block"] == 0
+    if name in V4_CALLS:
+        assert (calls["conv"], calls["gemm"], calls["pool"],
+                calls["sep"]) == V4_CALLS[name]
     if name == "resnet50":
-        assert (sites["fused_conv"], sites["matmul_epilogue"],
-                sites["pool"], sites["acc_mac"]) == (20, 34, 2, 16)
+        assert sites["acc_mac"] == 16
 
 
-@pytest.mark.parametrize("name", ["lenet5", "vgg16", "resnet50"])
+@pytest.mark.parametrize("name", SIX)
 def test_port_init_matches_reference_shapes_and_scale(name):
     """``init(gen)`` draws the reference's tree and shapes (params_from_jax
     raises on any mismatch) and its distributions: every weight with the

@@ -6,8 +6,14 @@ tests/test_torch_cuda.py`` (that machine
 has no JAX, so this file imports nothing of it).  The cases are the shapes
 of the shared conformance grid's (``kernel_cases.GRID``), plus the stem's
 Cin = 3 and a Cin % 4 == 0 conv with a residual, so both gather paths of the
-conv kernel run; inputs are made with numpy from a seed.  Tolerances as in
-``test_torch_kernels.py``; TF32 is off for the plain versions.
+conv kernel run; the depthwise and separable-block cases cover C not a
+multiple of 4 (byte loads) and of the 32-channel chunk, stride 2 with SAME
+and VALID, each act, Cout not a multiple of the 64-channel tile, and the
+split over C of MobileNet's late blocks.  Inputs are made with numpy from a
+seed.  Tolerances as in ``test_torch_kernels.py`` (the depthwise sums are
+exact, the separable block's f32 contraction over C gets
+``tol_from_acc(float32, C)``); TF32 is off for the plain versions, and a v0
+forward on the card matches the CPU with both TF32 flags on.
 """
 import numpy as np
 import pytest
@@ -44,6 +50,31 @@ POOL_CASES = [
     dict(op="avg", k=2, dtype=np.int8), dict(op="global_avg"),
     dict(op="global_avg", dtype=np.int8),
     dict(h=16, w_sp=16, c=130, op="max", k=2),
+]
+
+
+DW_CASES = [
+    dict(c=5, act="none"),  # C % 4 != 0: byte loads
+    dict(c=6, stride=2, padding="SAME", act="relu"),
+    dict(c=7, stride=2, padding="VALID", act="relu6"),
+    dict(c=32, padding="VALID", act="relu"),  # char4 loads, float4 stores
+    dict(c=96, h=32, w_sp=32, stride=2, padding="SAME", act="relu6"),
+    dict(c=144, stride=2, padding="VALID", act="none"),
+    dict(c=24, k=5, act="relu"),  # a tap stack the kernel does not unroll
+]
+SEP_CASES = [
+    dict(c=5, cout=9, dw_act="relu", pw_act="relu"),
+    dict(c=6, cout=70, stride=2, padding="VALID", dw_act="relu6",
+         pw_act="none"),
+    dict(c=130, cout=140, stride=2, dw_act="relu6", pw_act="none"),
+    dict(c=96, cout=24, h=32, w_sp=32, stride=2, dw_act="relu6",
+         pw_act="none"),
+    dict(c=33, cout=64, stride=2, padding="SAME", dw_act="none",
+         pw_act="relu6"),
+    # few output tiles against a long C: the split over C
+    dict(c=960, cout=320, h=2, w_sp=2, dw_act="relu6", pw_act="none"),
+    dict(c=1024, cout=1024, h=4, w_sp=4, stride=2, dw_act="relu",
+         pw_act="relu"),
 ]
 
 
@@ -134,3 +165,79 @@ def test_pool_kernels_match_plain(card, case):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     else:
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("case", DW_CASES, ids=str)
+def test_depthwise_kernel_matches_plain(card, case):
+    from repro_torch.kernels import depthwise_conv as dw
+
+    c = dict(seed=0, h=13, w_sp=11, c=5, k=3, stride=1, padding="SAME",
+             act="relu") | case
+    r = _rng(c["seed"])
+    x = r.integers(-127, 128, (2, c["h"], c["w_sp"], c["c"]), np.int8)
+    w = r.integers(-127, 128, (c["k"], c["k"], c["c"]), np.int8)
+    es = (r.random(c["c"]) * 1e-3).astype(np.float32)
+    eb = r.standard_normal(c["c"]).astype(np.float32)
+    args = [torch.from_numpy(a).to(card) for a in (x, w, es, eb)]
+    kw = dict(stride=c["stride"], padding=c["padding"], act=c["act"])
+    before = dw.depthwise_conv_int8.launches
+    got = dw.depthwise_conv_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert dw.depthwise_conv_int8.launches == before + 1
+    want = dw.depthwise_conv_int8_plain(*args, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", SEP_CASES, ids=str)
+def test_sep_block_kernel_matches_plain(card, case):
+    from repro_torch.kernels import depthwise_conv as dw
+
+    c = dict(seed=0, h=13, w_sp=11, c=5, cout=9, stride=1, padding="SAME",
+             dw_act="relu", pw_act="none") | case
+    r = _rng(c["seed"])
+    x = r.integers(-127, 128, (2, c["h"], c["w_sp"], c["c"]), np.int8)
+    wd = r.integers(-127, 128, (3, 3, c["c"]), np.int8)
+    ds = (r.random(c["c"]) * 1e-5).astype(np.float32)
+    db = r.standard_normal(c["c"]).astype(np.float32)
+    wp = r.integers(-127, 128, (c["c"], c["cout"]), np.int8)
+    ps = (r.random(c["cout"]) * 1e-3).astype(np.float32)
+    pb = r.standard_normal(c["cout"]).astype(np.float32)
+    args = [torch.from_numpy(a).to(card) for a in (x, wd, ds, db, wp, ps, pb)]
+    kw = dict(stride=c["stride"], padding=c["padding"], dw_act=c["dw_act"],
+              pw_act=c["pw_act"])
+    before = dw.sep_block_int8.launches
+    got = dw.sep_block_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert dw.sep_block_int8.launches == before + 1
+    want = dw.sep_block_int8_plain(*args, **kw)
+    t = max(max(32, c["c"]) * float(np.finfo(np.float32).eps) * 8, 1e-5)
+    torch.testing.assert_close(got, want, rtol=t, atol=t)  # tol_from_acc
+
+
+@pytest.mark.parametrize("name", ["lenet5", "resnet50"])
+def test_v0_forward_on_card_is_full_f32_whatever_the_tf32_flags(card, name):
+    """The plain baselines (v0) run in full f32 on the card even with both
+    TF32 flags on (cuDNN's default is on), and leave the flags as they
+    were: the card's v0 logits match the CPU's within 1e-4 relative L2
+    (f32 sums in another order; TF32 convolutions give about 1e-3)."""
+    from repro_torch import marvel
+    from repro_torch.models.cnn import get_cnn
+
+    init, apply, in_shape = get_cnn(name)
+    params = init(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(_rng(1).standard_normal((8, *in_shape), np.float32))
+    want = marvel.compile(apply, x, params=params, level="v0",
+                          device="cpu")(x)
+    flags = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        got = marvel.compile(apply, x, params=params, level="v0")(x).cpu()
+        assert [f.allow_tf32 for f in flags] == [True, True]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    rel = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+    assert rel <= 1e-4, rel

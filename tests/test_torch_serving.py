@@ -26,7 +26,8 @@ from repro_torch.models import cnn as tcnn  # noqa: E402
 from repro_torch.runtime.faults import FaultInjector  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORTED = ("fused_conv", "matmul_epilogue", "pool")
+PORTED = ("fused_conv", "matmul_epilogue", "pool", "depthwise_conv",
+          "sep_block")
 
 
 def _lenet_program(**kw):
@@ -42,7 +43,8 @@ def test_compile_binds_cuda_table_and_serves_async_on_cpu():
     assert prog.model_class == "cnn"
     assert prog.extensions == ["mac", "conv_mac", "fusedmac"]
     assert prog.resolved_extensions == {"fused_conv": "cuda",
-                                        "matmul_epilogue": "cuda"}
+                                        "matmul_epilogue": "cuda",
+                                        "sep_block": "cuda"}
     engine = prog.serve(mode="async", max_batch=4)
     images = tserve.random_images(in_shape, 11)
 

@@ -1,0 +1,16 @@
+"""qwen3-8b [dense]: qk_norm, GQA, head_dim 128. [hf:Qwen/Qwen3-8B; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+ARCH = ArchConfig(
+    name="qwen3-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=12288,
+    vocab=151936,
+    qk_norm=True,
+    rope_theta=1000000.0,
+)

@@ -5,13 +5,18 @@ Two sources feed one profile, as in the reference's ``core/profiler.py``:
   1. *instruction level* — the ATen ops the baseline issues, counted by a
      ``TorchDispatchMode``: ``conv`` (convolutions), ``dot`` (matrix
      products) and ``mul(mac)`` (both), the counts ``classify`` and
-     ``extensions_for_class`` read.  PyTorch runs eagerly and has no loop
-     primitive, so ``loop_iters`` stays 0;
+     ``extensions_for_class`` read;
   2. *pattern-site level* — the dispatch layer records every fusable call
      site with its tensor bytes, plus the reference's pseudo-sites
      (``acc_mac``, ``acc_flops``, ``conv_epilogue``, ``dw_mac_flops``,
      ``dw_epilogue``, ``sep_intermediate``, ``pool_flops``,
-     ``pool_epilogue``, ``pool_int8``).
+     ``pool_epilogue``, ``pool_int8``, ``attn_scores``, ``attn_flops``,
+     ``rmsnorm_epilogue``).
+
+A model's stack of layers runs through :func:`scan`, the port's
+``lax.scan``: while a profile records, its body runs once, as the
+reference's profiler traces a scan body once, so site counts are per
+program site and ``loop_iters`` adds the trip count.
 
 The model runs on fake tensors (meta-backed: shapes and dtypes, no data),
 so nothing is computed and no device is touched.  FLOP and byte totals for
@@ -46,6 +51,19 @@ _tls = threading.local()
 
 def _sink() -> list | None:
     return getattr(_tls, "sink", None)
+
+
+def scan(body, carry, layers):
+    """``carry = body(p, carry)`` for each layer's params ``p`` in order.
+    While a profile records on this thread, the body runs once, on the
+    first layer (the reference traces a scan body once), and the trip count
+    goes to the profile's ``loop_iters``."""
+    if _sink() is not None:
+        _tls.loop_iters = getattr(_tls, "loop_iters", 0) + len(layers)
+        return body(layers[0], carry)
+    for p in layers:
+        carry = body(p, carry)
+    return carry
 
 
 def _leaves(tree):
@@ -136,6 +154,18 @@ def _record_pseudo_sites(s: list, pattern: str, args, kwargs) -> None:
             ho, wo = _out_hw(x, w_dw, stride, padding)
             s.append(("sep_intermediate",
                       int(2 * 4 * x.shape[0] * ho * wo * x.shape[-1])))
+    if pattern == "flash_attention" and len(args) >= 2:
+        # what a non-streaming attention spills: the Sq x Skv f32 scores,
+        # written and read; and the QK^T + PV flops of the site
+        q, k = args[0], args[1]
+        b, sq, kh, g, dh = q.shape
+        skv = k.shape[1]
+        s.append(("attn_scores", int(2 * 4 * b * kh * g * sq * skv)))
+        s.append(("attn_flops", int(2 * 2 * b * kh * g * sq * skv * dh)))
+    if pattern == "residual_rmsnorm" and args:
+        # what the unfused form round-trips: the res + x sum, written by
+        # the add and read by the norm, in f32
+        s.append(("rmsnorm_epilogue", int(2 * 4 * args[0].numel())))
     if pattern == "pool" and args and isinstance(args[0], torch.Tensor):
         x = args[0]
         op = kwargs.get("op")
@@ -165,6 +195,7 @@ def _record_pseudo_sites(s: list, pattern: str, args, kwargs) -> None:
 @contextlib.contextmanager
 def _recording(sink: list):
     _tls.sink = sink
+    _tls.loop_iters = 0
     orig_call = dispatch.call
 
     def recording_call(pattern, baseline, *args, **kwargs):
@@ -232,6 +263,7 @@ def profile_fn(fn: Callable, *args, **kwargs) -> PatternProfile:
         with _recording(sink), dispatch.use_table(dispatch.EMPTY_TABLE), \
                 _OpCounter(prof.counts):
             fn(*fake, **kwargs)
+            prof.loop_iters = float(_tls.loop_iters)
     for pattern, nbytes in sink:
         prof.site_counts[pattern] += 1
         prof.site_bytes[pattern] += nbytes

@@ -4,7 +4,10 @@
 // the plain PyTorch versions and the reference compute them.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstddef>
 
 namespace marvel {
 
@@ -30,12 +33,24 @@ __device__ __forceinline__ float apply_act(float y, int act) {
   }
 }
 
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// res: null, or an f32 or bf16 tensor read at idx
+template <typename R>
 __device__ __forceinline__ float epilogue(float acc, float es, float eb,
-                                          const float* res, size_t idx,
-                                          int act) {
+                                          const R* res, size_t idx, int act) {
   float y = __fadd_rn(__fmul_rn(acc, es), eb);
-  if (res != nullptr) y = __fadd_rn(y, res[idx]);
+  if (res != nullptr) y = __fadd_rn(y, as_f32(res[idx]));
   return apply_act(y, act);
+}
+
+// no residual
+__device__ __forceinline__ float epilogue(float acc, float es, float eb,
+                                          std::nullptr_t, size_t, int act) {
+  return apply_act(__fadd_rn(__fmul_rn(acc, es), eb), act);
 }
 
 }  // namespace marvel

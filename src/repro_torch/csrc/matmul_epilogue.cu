@@ -1,4 +1,5 @@
-// fusedmac: f32 GEMM with the folded bias/BN/residual/act epilogue fused.
+// fusedmac: GEMM with the folded bias/BN/residual/act epilogue fused, on
+// f32 or bf16 operands with f32 sums.
 //
 // Replaces the TPU kernel src/repro/kernels/matmul_epilogue.py::_kernel
 // (pl.pallas_call at matmul_epilogue.py:105).
@@ -8,13 +9,19 @@
 // Bound on the H100: at ResNet50's shapes (K <= 2048, M = 4B..225B rows) a
 // full-f32 GEMM is at 2*M*N*K / 67 TFLOP/s against the bytes of x, w, the
 // residual and the output at 3.35 TB/s; the small-M late stages and the
-// N = 2 head are bound by reading w.  Design: a classic shared-memory tiled
-// SGEMM in full f32 FMA (no TF32, so the sums stay at f32 precision): each
-// 256-thread block owns a 64x64 output tile, stages 64x16 tiles of x and
-// 16x64 tiles of w in shared memory, and each thread keeps a 4x4 register
-// tile of accumulators.  Ragged M, N and K are masked with zero fill, so the
-// wrapper needs no padded copies.  The epilogue runs on the register tile
-// and the output is written once.
+// N = 2 head are bound by reading w.  A bf16 LM's decode step (M = a few
+// slots) is bound by reading w; its prefill (M = B*S) by the operations.
+// Design: a classic shared-memory tiled GEMM in full f32 FMA (no TF32, so
+// the sums stay at f32 precision): each 256-thread block owns a 64x64
+// output tile, stages 64x16 tiles of x and 16x64 tiles of w in shared
+// memory, and each thread keeps a 4x4 register tile of accumulators.  The
+// operands are read in their own type: a bf16 operand is converted to f32
+// while it is staged (exactly), so the sums, the epilogue and the result are
+// bit for bit those of the same values through the f32 path, and a bf16
+// weight is never copied to f32 in device memory.  The residual may be f32
+// or bf16 too.  Ragged M, N and K are masked with zero fill, so the wrapper
+// needs no padded copies.  The epilogue runs on the register tile and the
+// f32 output is written once.
 //
 // Split-K: the late stages and the head have too few 64x64 tiles to fill
 // 132 SMs (the head is one tile walking K = 2048 alone).  The wrapper then
@@ -22,6 +29,8 @@
 // workspace, and a second kernel adds the slices in a fixed order (so the
 // result does not vary from run to run) and applies the epilogue.  Tensor
 // cores (wgmma on TF32/bf16) and TMA pipelining are later work.
+#include <cuda_bf16.h>
+
 #include <cstdint>
 
 #include "epilogue.cuh"
@@ -30,11 +39,17 @@ namespace {
 
 constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
 
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <typename T, typename R>
 __global__ void __launch_bounds__(THREADS)
-matmul_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ w,
+matmul_epilogue_kernel(const T* __restrict__ x, const T* __restrict__ w,
                        const float* __restrict__ es,
                        const float* __restrict__ eb,
-                       const float* __restrict__ res, float* __restrict__ out,
+                       const R* __restrict__ res, float* __restrict__ out,
                        float* __restrict__ ws, int M, int N, int K,
                        int k_per_split, int act) {
   __shared__ float As[BK][BM];  // x tile, transposed: As[k][m]
@@ -57,14 +72,14 @@ matmul_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ w,
       int e = tid + l * THREADS;
       int r = e / BK, c = e % BK;
       int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < k_end) ? x[(size_t)gm * K + gk] : 0.0f;
+      As[c][r] = (gm < M && gk < k_end) ? ld(x + (size_t)gm * K + gk) : 0.0f;
     }
 #pragma unroll
     for (int l = 0; l < (BK * BN) / THREADS; ++l) {
       int e = tid + l * THREADS;
       int r = e / BN, c = e % BN;
       int gk = k0 + r, gn = n0 + c;
-      Bs[r][c] = (gk < k_end && gn < N) ? w[(size_t)gk * N + gn] : 0.0f;
+      Bs[r][c] = (gk < k_end && gn < N) ? ld(w + (size_t)gk * N + gn) : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -101,11 +116,12 @@ matmul_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 // split-K second pass: the slices summed in order 0..splits-1, then the
 // epilogue
+template <typename R>
 __global__ void splitk_epilogue_kernel(const float* __restrict__ ws,
                                        int splits,
                                        const float* __restrict__ es,
                                        const float* __restrict__ eb,
-                                       const float* __restrict__ res,
+                                       const R* __restrict__ res,
                                        float* __restrict__ out, int M, int N,
                                        int act) {
   size_t total = (size_t)M * N;
@@ -117,29 +133,54 @@ __global__ void splitk_epilogue_kernel(const float* __restrict__ ws,
   out[i] = marvel::epilogue(acc, es[n], eb[n], res, i, act);
 }
 
-}  // namespace
-
-// splits > 1 needs ws: a (splits, M, N) f32 workspace; k_per_split is a
-// multiple of BK with splits * k_per_split >= K.
-extern "C" int marvel_matmul_epilogue(const float* x, const float* w,
-                                      const float* es, const float* eb,
-                                      const float* res, float* out, float* ws,
-                                      int M, int N, int K, int splits,
-                                      int k_per_split, int act, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+template <typename T, typename R>
+int launch(const void* xv, const void* wv, const float* es, const float* eb,
+           const void* resv, float* out, float* ws, int M, int N, int K,
+           int splits, int k_per_split, int act, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xv);
+  const T* w = static_cast<const T*>(wv);
+  const R* res = static_cast<const R*>(resv);
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
   if (splits <= 1) {
-    matmul_epilogue_kernel<<<grid, THREADS, 0, s>>>(
+    matmul_epilogue_kernel<T, R><<<grid, THREADS, 0, s>>>(
         x, w, es, eb, res, out, nullptr, M, N, K, K, act);
     return (int)cudaGetLastError();
   }
-  matmul_epilogue_kernel<<<grid, THREADS, 0, s>>>(
+  matmul_epilogue_kernel<T, R><<<grid, THREADS, 0, s>>>(
       x, w, es, eb, res, out, ws, M, N, K, k_per_split, act);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   size_t total = (size_t)M * N;
   unsigned blocks = (unsigned)((total + 255) / 256);
-  splitk_epilogue_kernel<<<blocks, 256, 0, s>>>(ws, splits, es, eb, res, out,
-                                                M, N, act);
+  splitk_epilogue_kernel<R><<<blocks, 256, 0, s>>>(ws, splits, es, eb, res,
+                                                   out, M, N, act);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x: (M, K), w: (K, N), both f32 or both bf16 (x_bf16); res: (M, N) f32 or
+// bf16 (res_bf16) or null; es, eb: (N,) f32; out: (M, N) f32.  splits > 1
+// needs ws: a (splits, M, N) f32 workspace; k_per_split is a multiple of BK
+// with splits * k_per_split >= K.
+extern "C" int marvel_matmul_epilogue(const void* x, const void* w,
+                                      const float* es, const float* eb,
+                                      const void* res, float* out, float* ws,
+                                      int M, int N, int K, int splits,
+                                      int k_per_split, int act, int x_bf16,
+                                      int res_bf16, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  using bf16 = __nv_bfloat16;
+  if (x_bf16) {
+    if (res_bf16)
+      return launch<bf16, bf16>(x, w, es, eb, res, out, ws, M, N, K, splits,
+                                k_per_split, act, s);
+    return launch<bf16, float>(x, w, es, eb, res, out, ws, M, N, K, splits,
+                               k_per_split, act, s);
+  }
+  if (res_bf16)
+    return launch<float, bf16>(x, w, es, eb, res, out, ws, M, N, K, splits,
+                               k_per_split, act, s);
+  return launch<float, float>(x, w, es, eb, res, out, ws, M, N, K, splits,
+                              k_per_split, act, s);
 }

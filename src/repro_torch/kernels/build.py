@@ -7,8 +7,9 @@ sources and flags so an edit rebuilds and an unchanged tree reuses it.
 Nothing here runs at import: the CPU tests import every module, and the
 build is only reached when a wrapper is handed a CUDA tensor.
 
-Each C entry point takes raw device pointers, sizes, and the current CUDA
-stream as a ``c_void_p``, launches without synchronising, and returns
+Each C entry point takes raw device pointers, sizes (``c_int``), scalars
+(``c_float``) and the current CUDA stream as a ``c_void_p``, launches
+without synchronising, and returns
 ``cudaGetLastError()``; :func:`check` raises if that is not 0.
 """
 from __future__ import annotations
@@ -27,16 +28,18 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every entry point (pointers and the stream as c_void_p, so
 # ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "marvel_matmul_epilogue": (_P,) * 7 + (_I,) * 6 + (_P,),
+    "marvel_matmul_epilogue": (_P,) * 7 + (_I,) * 8 + (_P,),
     "marvel_fused_conv": (_P,) * 7 + (_I,) * 15 + (_P,),
     "marvel_windowed_pool": (_P, _P) + (_I,) * 10 + (_P,),
     "marvel_global_avgpool": (_P, _P, _I, _I, _I, _I, _P),
     "marvel_depthwise_conv": (_P,) * 5 + (_I,) * 12 + (_P,),
     "marvel_sep_block": (_P,) * 9 + (_I,) * 16 + (_P,),
+    "marvel_residual_rmsnorm": (_P,) * 5 + (_I, _I, _F, _I, _P),
+    "marvel_flash_attention": (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _P),
 }
 
 _lock = threading.Lock()

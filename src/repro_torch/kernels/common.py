@@ -1,5 +1,6 @@
 """Shared kernel plumbing: conv geometry, epilogue acts, eligibility
-predicates and the device rule every kernel wrapper follows.
+predicates, the device rule every kernel wrapper follows, and
+:func:`full_f32`, the precision guard of every plain product.
 
 The device rule: a wrapper given CPU tensors runs its kernel's plain
 PyTorch version (the analogue of the reference's Pallas interpret mode); a
@@ -7,6 +8,9 @@ wrapper given CUDA tensors launches the hand-written kernel or raises.
 There is no fallback from the kernel to the plain version.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -139,3 +143,31 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+# the two TF32 switches and their full-f32 value (PyTorch >= 2.9), and
+# cuBLAS's bf16 reduced-precision reduction (on by default)
+_TF32_SWITCHES = ((torch.backends.cudnn.conv, "fp32_precision", "ieee"),
+                  (torch.backends.cuda.matmul, "fp32_precision", "ieee"),
+                  (torch.backends.cuda.matmul,
+                   "allow_bf16_reduced_precision_reduction", False))
+
+
+_f32_lock = threading.RLock()  # the switches are process-global
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Run float32 convolutions (cuDNN) and matrix products (cuBLAS) in full
+    f32, and bf16 products with f32 sums, whatever the caller's global
+    settings, and put those settings back on exit.  CPU arithmetic is
+    unaffected."""
+    with _f32_lock:
+        saved = [getattr(ns, attr) for ns, attr, _ in _TF32_SWITCHES]
+        try:
+            for ns, attr, value in _TF32_SWITCHES:
+                setattr(ns, attr, value)
+            yield
+        finally:
+            for (ns, attr, _), value in zip(_TF32_SWITCHES, saved):
+                setattr(ns, attr, value)

@@ -6,6 +6,8 @@ Replaces the TPU kernel ``src/repro/kernels/matmul_epilogue.py::_kernel``
 and how its tiling answers that.  The whole epilogue folds into one
 per-column pair ``act(acc*es + eb [+ residual])`` with ``es = scale`` and
 ``eb = b*es + shift``, so the GEMM output is written to device memory once.
+Operands are f32 (the CNNs) or bf16 (the LMs): the kernel reads bf16 in
+place and sums in f32, so a bf16 weight is never copied to f32.
 
 :func:`matmul_epilogue` is the wrapper: CPU tensors run
 :func:`matmul_epilogue_plain`'s arithmetic, CUDA tensors launch the kernel
@@ -46,35 +48,47 @@ def _plain(x2, w, es, eb, r2, act):
     return ACTS[act](y)
 
 
+_OPERAND_TYPES = (torch.float32, torch.bfloat16)
+
+
 def _launch(x2, w, es, eb, r2, act):
+    """The kernel on (M, K) @ (K, N) operands: read as they are when both are
+    f32 or both bf16, else taken to f32 first; the residual likewise; the
+    output is f32."""
     m, k = x2.shape
     n = w.shape[1]
     if max(m * n, m * k, k * n) > _INT32_MAX:
         raise ValueError(f"GEMM ({m}x{k}) @ ({k}x{n}) exceeds the kernel's "
                          f"32-bit indexing")
-    xf = x2.float().contiguous()
-    wf = w.float().contiguous()
-    es, eb = es.contiguous(), eb.contiguous()
-    rf = None if r2 is None else r2.float().contiguous()
-    check_operand(xf, "x", torch.float32, (m, k))
-    check_operand(wf, "w", torch.float32, (k, n))
+    if x2.dtype != w.dtype or x2.dtype not in _OPERAND_TYPES:
+        x2, w = x2.float(), w.float()
+    if r2 is not None and r2.dtype not in _OPERAND_TYPES:
+        r2 = r2.float()
+    dt = x2.dtype
+    x2, w, es, eb = (x2.contiguous(), w.contiguous(), es.contiguous(),
+                     eb.contiguous())
+    r2 = None if r2 is None else r2.contiguous()
+    check_operand(x2, "x", dt, (m, k))
+    check_operand(w, "w", dt, (k, n))
     check_operand(es, "es", torch.float32, (n,))
     check_operand(eb, "eb", torch.float32, (n,))
-    if rf is not None:
-        check_operand(rf, "residual", torch.float32, (m, n))
-    out = torch.empty((m, n), dtype=torch.float32, device=xf.device)
+    if r2 is not None:
+        check_operand(r2, "residual", r2.dtype, (m, n))
+    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
     k_iters = -(-k // BK)
     splits = split_k(-(-m // BM) * -(-n // BN), k_iters,
-                     build.sm_count(xf.device))
+                     build.sm_count(x2.device))
     per = -(-k_iters // splits) * BK
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=xf.device)
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
           if splits > 1 else None)
-    with torch.cuda.device(xf.device):
+    with torch.cuda.device(x2.device):
         status = build.lib().marvel_matmul_epilogue(
-            xf.data_ptr(), wf.data_ptr(), es.data_ptr(), eb.data_ptr(),
-            None if rf is None else rf.data_ptr(), out.data_ptr(),
+            x2.data_ptr(), w.data_ptr(), es.data_ptr(), eb.data_ptr(),
+            None if r2 is None else r2.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), m, n, k, splits, per,
-            ACT_CODES[act], build.stream_ptr(xf.device))
+            ACT_CODES[act], int(dt == torch.bfloat16),
+            int(r2 is not None and r2.dtype == torch.bfloat16),
+            build.stream_ptr(x2.device))
     build.check("matmul_epilogue", status)
     return out
 

@@ -1,6 +1,6 @@
 """Dispatch wrappers + registration: the ``cuda`` backend.
 
-Importing this module registers each CNN kernel under its MARVEL pattern
+Importing this module registers each kernel under its MARVEL pattern
 name, so ``marvel.compile(..., backend="cuda")`` — or an ambient
 ``dispatch.use_table(resolve_table(level, "cuda", model_class="cnn"))`` —
 swaps them in without any model-code change.  The wrappers keep the
@@ -19,14 +19,21 @@ import torch
 
 from repro_torch.core import dispatch
 from repro_torch.kernels import depthwise_conv as dw
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_conv as fc
 from repro_torch.kernels import matmul_epilogue as me
 from repro_torch.kernels import pooling as pk
 from repro_torch.kernels import ref
+from repro_torch.kernels import residual_rmsnorm as rr
 from repro_torch.kernels.common import (
     conv_kernel_eligible, conv_residual_fusable, depthwise_kernel_eligible,
     gemm_residual_fusable, sep_kernel_eligible,
 )
+from repro_torch.models.layers import _flash_attention_ref
+
+# the reference's flash KV tile (its tuning default, bk = 128): its
+# guards decide from it whether ragged KV could reach padded keys
+FLASH_BK = 128
 
 
 def _quant_int8(a, axes=None):
@@ -165,6 +172,36 @@ def _cuda_pool(x, *, op, k=2, stride=2):
     return pk.windowed_pool(x, k=k, stride=stride, op=op)
 
 
+def _cuda_residual_rmsnorm(res, x, scale, eps=1e-6):
+    return rr.residual_rmsnorm(res, x, scale, eps=eps)
+
+
+def _cuda_flash_attention(q, k, v, *, causal=True, q_offset=0,
+                          impl="chunked", chunk=512, window=None, kv_len=None,
+                          k_scale=None, v_scale=None):
+    """zol: the causal self-attention fast path runs the kernel; decode
+    (``Sq == 1``), ragged decode (``kv_len``), windows, ``dh != dv`` and
+    non-causal attention over KV the reference's tile does not divide run
+    the plain reference, exactly as the reference wrapper routes them (it
+    also dequantizes int8 KV)."""
+    b, sq, kh, g, dh = q.shape
+    dv = v.shape[-1]
+    skv = k.shape[1]
+    bk = min(FLASH_BK, skv)
+    pad_unsafe = (not causal) and (skv % bk != 0)
+    if (window is not None or kv_len is not None or sq == 1 or dh != dv
+            or pad_unsafe):
+        return _flash_attention_ref(
+            q, k, v, causal=causal, q_offset=q_offset, impl=impl,
+            chunk=chunk, window=window, kv_len=kv_len, k_scale=k_scale,
+            v_scale=v_scale)
+    if k_scale is not None:
+        # int8 KV: the rank-1 dequant at the kernel boundary
+        k = ref.dequant_kv(k, k_scale, q.dtype)
+        v = ref.dequant_kv(v, v_scale, q.dtype)
+    return fa.flash_attention(q, k, v, causal=causal)
+
+
 def register():
     cuda = ("cuda",)
     dispatch.register_impl("fused_conv", "cuda", _cuda_fused_conv,
@@ -175,6 +212,10 @@ def register():
     dispatch.register_impl("depthwise_conv", "cuda", _cuda_depthwise_conv,
                            platforms=cuda)
     dispatch.register_impl("sep_block", "cuda", _cuda_sep_block,
+                           platforms=cuda)
+    dispatch.register_impl("residual_rmsnorm", "cuda", _cuda_residual_rmsnorm,
+                           platforms=cuda)
+    dispatch.register_impl("flash_attention", "cuda", _cuda_flash_attention,
                            platforms=cuda)
 
 

@@ -1,44 +1,23 @@
-"""Plain PyTorch baselines for the CNN kernels: the oracles the dispatch
-wrappers fall back to when a site is outside a kernel's guards, and the v0
-arithmetic of the model sites.
+"""Plain PyTorch baselines: the oracles the dispatch wrappers fall back to
+when a site is outside a kernel's guards, the v0 arithmetic of the model
+sites, and the plain versions of the LM kernels (``residual_rmsnorm``,
+``flash_attention``) with the int8-KV dequant.
 
-Every f32 product and convolution here runs under :func:`full_f32`: on a
+Every float product and convolution here runs under :func:`full_f32`: on a
 CUDA tensor, cuDNN would otherwise run a float32 convolution in TF32 (its
-default), a 10-bit mantissa where the reference computes in f32."""
+default), a 10-bit mantissa where the reference computes in f32, and cuBLAS
+may reduce a bf16 product in bf16 where the reference accumulates in f32."""
 from __future__ import annotations
 
-import contextlib
-import threading
+import math
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.common import conv_out_size, same_pads
-from repro_torch.models.layers import ACTS
-
-
-# the two TF32 switches and their full-f32 value (PyTorch >= 2.9)
-_TF32_SWITCHES = ((torch.backends.cudnn.conv, "fp32_precision", "ieee"),
-                  (torch.backends.cuda.matmul, "fp32_precision", "ieee"))
-
-
-_f32_lock = threading.RLock()  # the switches are process-global
-
-
-@contextlib.contextmanager
-def full_f32():
-    """Run float32 convolutions (cuDNN) and matrix products (cuBLAS) in full
-    f32 whatever the caller's global TF32 settings, and put those settings
-    back on exit.  CPU arithmetic is unaffected."""
-    with _f32_lock:
-        saved = [getattr(ns, attr) for ns, attr, _ in _TF32_SWITCHES]
-        try:
-            for ns, attr, value in _TF32_SWITCHES:
-                setattr(ns, attr, value)
-            yield
-        finally:
-            for (ns, attr, _), value in zip(_TF32_SWITCHES, saved):
-                setattr(ns, attr, value)
+from repro_torch.kernels.common import (
+    conv_out_size, full_f32, same_pads,
+)
+from repro_torch.models.layers import ACTS, NEG_INF
 
 
 def conv_nhwc(x, w, *, stride=1, padding="SAME", groups=1):
@@ -148,3 +127,49 @@ def pool_ref(x, *, op, k=2, stride=2):
     if op == "max":
         return acc.to(x.dtype)
     return (acc / float(k * k)).to(avg_out_dtype(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels' plain versions
+# ---------------------------------------------------------------------------
+
+
+def residual_rmsnorm_plain(res, x, scale, eps=1e-6):
+    """The add2i kernel's function (``src/repro/kernels/residual_rmsnorm.py::
+    _kernel``): ``r = f32(res) + f32(x)``; returns ``(r`` in res.dtype,
+    ``r * rsqrt(mean(r**2) + eps) * scale`` in res.dtype), the norm taken on
+    the unrounded f32 ``r``."""
+    r = res.float() + x.float()
+    var = r.square().mean(dim=-1, keepdim=True)
+    y = r * torch.rsqrt(var + eps) * scale.float()
+    return r.to(res.dtype), y.to(res.dtype)
+
+
+def flash_attention_plain(q, k, v, causal=True):
+    """The zol kernel's function (``src/repro/kernels/flash_attention.py::
+    _kernel``) on ``(BH, Sq, d)`` / ``(BH, Skv, d)``: f32 scores scaled by
+    ``1/sqrt(d)`` after the product, masked with -1e30 (query i sees keys
+    ``<= i``), softmax with the probabilities rounded to ``v.dtype`` before
+    the PV product and the denominator summed from the unrounded ones,
+    ``acc / max(l, 1e-30)`` in ``q.dtype``.  One block spans the whole KV
+    row, so it differs from the kernel's blocked online softmax only in
+    rounding."""
+    sq, skv, d = q.shape[1], k.shape[1], q.shape[-1]
+    with full_f32():
+        s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+    s = s * (1.0 / math.sqrt(d))
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(qpos >= kpos, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    den = p.sum(dim=-1, keepdim=True)
+    with full_f32():
+        acc = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).float(), v.float())
+    return (acc / torch.clamp_min(den, 1e-30)).to(q.dtype)
+
+
+def dequant_kv(codes, scales, dtype):
+    """int8 KV codes with per-(position, head) f32 scale planes -> ``dtype``
+    (the rank-1 dequant the reference applies at the attention boundary)."""
+    return (codes.float() * scales[..., None]).to(dtype)

@@ -15,6 +15,16 @@ MarvelProgram artifact, on the CUDA card by default.
         engine.warmup(in_shape)
         result = await engine.submit(image)
 
+An LM compiles the same way (``fn(params, tokens)`` -> logits) and serves
+through the continuous-batching tier::
+
+    prog = marvel.compile(lambda p, t: T.forward_lm(p, t, cfg, run)[0],
+                          tokens, params=params, level="v4")
+    async with prog.serve(mode="lm", cfg=cfg, run=run, slots=8,
+                          max_len=64, kv_quant="int8") as engine:
+        engine.warmup()
+        req = await engine.submit(prompt, max_new_tokens=16)
+
 ``device=None`` means ``"cuda"``; without a card, compile raises unless the
 caller asks for ``device="cpu"``, where ``backend="cuda"`` runs every kernel
 wrapper's plain version (what the CPU tests use).  The per-level report
@@ -86,7 +96,13 @@ class MarvelProgram:
     cache_hits: int = 0
     cache_misses: int = 0
     dp_shards: int = 1  # one card is one shard
+    # the bound parameter tree, kept so serve(mode="lm") can build decode
+    # engines without re-threading params
+    bound_params: object = field(default=None, repr=False)
     _cache: dict = field(default_factory=dict, repr=False)
+    # (bucket_len, slots, kv_quant) -> decode step, shared by every LM
+    # engine of this program so a replacement engine warms from cache hits
+    _lm_exec_cache: dict = field(default_factory=dict, repr=False)
 
     @property
     def resolved_extensions(self) -> dict[str, str]:
@@ -126,14 +142,47 @@ class MarvelProgram:
         return len(self._cache)
 
     def serve(self, mode: str = "sync", **engine_kwargs):
-        """A CNN serving engine over this artifact: ``mode="sync"`` returns
+        """A serving engine over this artifact.
+
+        CNN classifiers: ``mode="sync"`` returns
         :class:`~repro_torch.runtime.cnn_server.CnnBatchEngine`,
         ``mode="async"`` the :class:`~repro_torch.runtime.cnn_server.
-        AsyncCnnEngine` tier (``await engine.submit(x)``)."""
+        AsyncCnnEngine` tier (``await engine.submit(x)``).
+
+        LM classes (``*_lm``): ``mode="lm"`` returns the continuous-batching
+        :class:`~repro_torch.runtime.lm_server.AsyncLmEngine` (``await
+        engine.submit(prompt)``), ``mode="lm_sync"`` the caller-driven
+        :class:`~repro_torch.runtime.lm_server.ContinuousBatchEngine`.  Both
+        need ``cfg=``/``run=`` and take ``slots``, ``max_len`` or
+        ``bucket_lens``, ``kv_quant="int8"``, ``retry=`` and ``faults=``;
+        the program's table is bound into every decode step, and engines
+        share the program's LM exec cache."""
+        if mode in ("lm", "lm_sync"):
+            if not (self.model_class.endswith("_lm")
+                    or self.model_class == "unknown"):
+                raise NotImplementedError(
+                    f"serve(mode={mode!r}) is the LM tier; this program is "
+                    f"{self.model_class!r}")
+            from repro_torch.runtime.lm_server import (
+                AsyncLmEngine, ContinuousBatchEngine,
+            )
+
+            params = engine_kwargs.pop("params", None)
+            if params is None:
+                params = self.bound_params
+            if params is None:
+                raise ValueError(
+                    "serve(mode='lm') needs the parameter tree: pass params= "
+                    "to marvel.compile() or to serve()")
+            cls = AsyncLmEngine if mode == "lm" else ContinuousBatchEngine
+            return cls(params, engine_kwargs.pop("cfg"),
+                       engine_kwargs.pop("run"), table=self.table,
+                       exec_cache=self._lm_exec_cache, **engine_kwargs)
         if self.model_class != "cnn":
             raise NotImplementedError(
-                f"serve() covers the cnn class (mode='sync'/'async'); this "
-                f"program is {self.model_class!r}")
+                f"serve() covers the cnn class (mode='sync'/'async') and LM "
+                f"classes (mode='lm'/'lm_sync'); this program is "
+                f"{self.model_class!r}")
         from repro_torch.runtime.cnn_server import (
             AsyncCnnEngine, CnnBatchEngine,
         )
@@ -196,6 +245,7 @@ def compile(fn: Callable, *example_args, level: str = "v4",
     program = MarvelProgram(
         fn=table.bind(model_fn), level=level, backend=backend, table=table,
         model_class=model_class, extensions=exts, profile=prof, device=dev,
+        bound_params=bound_params if params is not None else None,
     )
     if precompile:
         program.executable_for(*example_args)

@@ -1,0 +1,191 @@
+"""LM assembly for the dense family (granite, qwen3, starcoder2), the
+counterpart of the reference's ``models/transformer.py``.
+
+Params are a dict: ``{"embed": {"table": (V, d)}, "ln_f": (d,), "layers":
+[one dict per layer]}``; a layer holds ``ln1``, ``attn``, ``ln2`` and
+``mlp``.  The reference stacks the layers on a leading axis and scans them;
+here a list runs in a Python loop (:func:`repro_torch.core.profiler.scan`,
+which the profiler sees once per program site, as the reference's traced
+scan body).  :func:`params_from_jax` converts the reference's tree.
+
+The decode state is ``{"index": (B,) int32, "cache": {"k", "v": (L, B, Smax,
+K, dh)}}``, with int8 ``k``/``v`` and f32 ``k_scale``/``v_scale`` (L, B, Smax,
+K) planes when ``kv_quant="int8"``.  :func:`decode_step` writes each lane's
+new K/V into the cache in place and returns a new ``index``.
+
+The other families (moe, mla, hybrid, enc_dec, rwkv) come with later slices.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.core import profiler
+from repro_torch.models import layers as L
+
+FAMILIES = ("dense",)
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"the port serves the {FAMILIES} families; {cfg.name} is "
+            f"{cfg.family!r}")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _dense_layer_init(gen, cfg, dtype, device):
+    ones = dict(dtype=dtype, device=device)
+    return {
+        "ln1": torch.ones(cfg.d_model, **ones),
+        "attn": L.attn_init(gen, cfg, dtype, device=device),
+        "ln2": torch.ones(cfg.d_model, **ones),
+        "mlp": L.mlp_init(gen, cfg, dtype, device=device),
+    }
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
+    """Random params in ``cfg.param_dtype`` with the reference's
+    distributions (``dense_init``: N(0, 1)/sqrt(fan_in); the embedding at
+    scale 1), drawn from ``gen`` on its own device and kept on ``device``
+    (default: the generator's).  With a CUDA generator every weight is drawn
+    on the card, one at a time, so a full-width model never exists on the
+    CPU."""
+    _check_family(cfg)
+    device = gen.device if device is None else torch.device(device)
+    dtype = torch_dtype(cfg.param_dtype)
+    params = {
+        "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dtype,
+                              device=device),
+        "ln_f": torch.ones(cfg.d_model, dtype=dtype, device=device),
+    }
+    params["layers"] = [_dense_layer_init(gen, cfg, dtype, device)
+                        for _ in range(cfg.n_layers)]
+    return params
+
+
+def _to_torch(a, device) -> torch.Tensor:
+    """A numpy array as a tensor of its own (a copy) on ``device``."""
+    a = np.array(a, copy=True, order="C")
+    if a.dtype.name == "bfloat16":  # ml_dtypes: torch cannot read it as is
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree, cfg: ArchConfig, device="cpu") -> dict:
+    """The reference's param tree (numpy leaves, bf16 as ``ml_dtypes``,
+    layers stacked on a leading L axis) -> the port's, on ``device``, bit
+    for bit."""
+    _check_family(cfg)
+    n_layers = np.asarray(tree["layers"]["ln1"]).shape[0]
+    return {
+        "embed": {"table": _to_torch(tree["embed"]["table"], device)},
+        "ln_f": _to_torch(tree["ln_f"], device),
+        "layers": [_map(tree["layers"], lambda a, i=i: _to_torch(
+            np.asarray(a)[i], device)) for i in range(n_layers)],
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _block_dense(p, x, cfg, run, positions, causal=True):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    a = L.attention(p["attn"], h, cfg, positions=positions, causal=causal,
+                    window=cfg.sliding_window or None,
+                    attn_impl=run.attn_impl, chunk=run.attn_chunk)
+    x, h2 = L.residual_rmsnorm(x, a, p["ln2"], cfg.norm_eps)
+    return L.mlp(p["mlp"], h2, cfg, residual=x)  # acc_mac skip-add
+
+
+def forward_hidden(params, tokens, cfg: ArchConfig, run: RunConfig):
+    """tokens: (B, S) -> (hidden (B, S, d), aux, prefix_len)."""
+    _check_family(cfg)
+    x = L.embed_lookup(params["embed"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = profiler.scan(
+        lambda p, x: _block_dense(p, x, cfg, run, positions), x,
+        params["layers"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps), aux, 0
+
+
+def forward_lm(params, tokens, cfg: ArchConfig, run: RunConfig):
+    """tokens: (B, S) -> (logits (B, S, V_padded), aux)."""
+    hidden, aux, _ = forward_hidden(params, tokens, cfg, run)
+    return L.embed_logits(params["embed"], hidden), aux
+
+
+# ---------------------------------------------------------------------------
+# decode: stateful single-token generation
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(params, cfg: ArchConfig, run: RunConfig, batch: int,
+                      max_len: int, kv_quant=None) -> dict:
+    """The per-layer KV cache (leading L axis) and the per-lane position
+    index, on the params' device.  ``kv_quant="int8"`` stores the pools as
+    int8 codes with per-(position, head) f32 scale planes (4x smaller)."""
+    del run
+    _check_family(cfg)
+    table = params["embed"]["table"]
+    dev, dtype = table.device, table.dtype
+    n_layers = len(params["layers"])
+    kv, dh = cfg.n_kv_heads, cfg.d_head
+    smax = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+            else max_len)
+    shape = (n_layers, batch, smax, kv, dh)
+    state = {"index": torch.zeros(batch, dtype=torch.int32, device=dev)}
+    if kv_quant is None:
+        state["cache"] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                          "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    elif kv_quant == "int8":
+        int8 = dict(dtype=torch.int8, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        state["cache"] = {"k": torch.zeros(shape, **int8),
+                          "v": torch.zeros(shape, **int8),
+                          "k_scale": torch.zeros(shape[:-1], **f32),
+                          "v_scale": torch.zeros(shape[:-1], **f32)}
+    else:
+        raise ValueError(f"unknown kv_quant {kv_quant!r} (want 'int8')")
+    return state
+
+
+def decode_step(params, state, tokens, cfg: ArchConfig, run: RunConfig):
+    """tokens: (B, 1) -> (logits (B, 1, V_padded), new state).  The new
+    state holds the same cache (its rows at each lane's index written in
+    place) and ``index + 1``; the old state's index is untouched, so a step
+    may be repeated from it (retry, warmup)."""
+    del run
+    _check_family(cfg)
+    idx = state["index"]
+    cache = state["cache"]
+    x = L.embed_lookup(params["embed"], tokens)
+    window = cfg.sliding_window or None
+    for i, p in enumerate(params["layers"]):
+        c = {name: t[i] for name, t in cache.items()}
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        a, _ = L.attention_decode(p["attn"], h, c, idx, cfg, window=window)
+        x, h2 = L.residual_rmsnorm(x, a, p["ln2"], cfg.norm_eps)
+        x = L.mlp(p["mlp"], h2, cfg, residual=x)  # acc_mac skip-add
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = L.embed_logits(params["embed"], x)
+    return logits, dict(state, index=idx + 1)

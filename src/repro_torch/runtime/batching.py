@@ -1,9 +1,10 @@
 """Shared micro-batching core for the serving engines.
 
-The serving engines (this slice: the CNN batch engines of
-:mod:`repro_torch.runtime.cnn_server`) need the same primitives: power-of-two
-batch buckets so the program's bucket cache stays small, a bounded admission queue
-that rejects instead of growing without limit, and
+The serving engines (the CNN batch engines of
+:mod:`repro_torch.runtime.cnn_server` and the LM continuous-batching engine
+of :mod:`repro_torch.runtime.lm_server`) need the same primitives:
+power-of-two batch buckets so the program's bucket cache stays small, a
+bounded admission queue that rejects instead of growing without limit, and
 a metrics surface (queue depth, latency percentiles, batch occupancy) that
 benchmarks and CI can assert on.  This module owns those primitives; the
 engines own only their dispatch loops.
@@ -149,6 +150,18 @@ class BoundedQueue:
             self.rejected += 1
             raise
         self._q.append(item)
+
+    def popleft(self):
+        return self._q.popleft()
+
+    def push_front(self, item) -> None:
+        """Return an already-admitted item to the head of the queue (slot
+        contention / eviction-replay) — no admission check, it was paid on
+        the original ``push``."""
+        self._q.appendleft(item)
+
+    def peek(self):
+        return self._q[0]
 
     def pop_up_to(self, n: int) -> list:
         return [self._q.popleft() for _ in range(min(n, len(self._q)))]

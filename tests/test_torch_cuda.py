@@ -14,6 +14,14 @@ seed.  Tolerances as in ``test_torch_kernels.py`` (the depthwise sums are
 exact, the separable block's f32 contraction over C gets
 ``tol_from_acc(float32, C)``); TF32 is off for the plain versions, and a v0
 forward on the card matches the CPU with both TF32 flags on.
+
+The LM kernels: ``residual_rmsnorm`` on the grid's rows (33 x 96, 130 x
+257) and qwen3-8b's (8 and 2048 rows of 4096), ``flash_attention`` on the
+grid's grouped and ragged cases and qwen3-8b's heads, and the GEMM on bf16
+operands.  In f32 the tolerance is ``tol_from_acc(float32, K)`` (sum order
+over the reduction K); in bf16 the outputs may differ by one bf16 rounding
+(2**-7 relative), and flash attention's probabilities too (2**-7 of
+``mean|v|`` absolute), where the two sum orders straddle a rounding edge.
 """
 import numpy as np
 import pytest
@@ -241,3 +249,128 @@ def test_v0_forward_on_card_is_full_f32_whatever_the_tf32_flags(card, name):
     assert got.shape == want.shape and torch.isfinite(got).all()
     rel = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
     assert rel <= 1e-4, rel
+
+
+def _tol32(k):
+    t = max(max(32, k) * float(np.finfo(np.float32).eps) * 8, 1e-5)
+    return dict(rtol=t, atol=t)  # tol_from_acc(float32, K)
+
+
+RMSNORM_CASES = [
+    dict(rows=33, d=96), dict(rows=130, d=257),
+    dict(rows=8, d=4096, dtype="bfloat16"),
+    dict(rows=2048, d=4096, dtype="bfloat16"),
+    dict(rows=130, d=257, dtype="bfloat16"), dict(rows=8, d=4096),
+]
+
+
+@pytest.mark.parametrize("case", RMSNORM_CASES, ids=str)
+def test_residual_rmsnorm_kernel_matches_plain(card, case):
+    from repro_torch.kernels import residual_rmsnorm as rr
+    from repro_torch.kernels.ref import residual_rmsnorm_plain
+
+    c = dict(seed=0, dtype="float32") | case
+    r = _rng(c["seed"])
+    dt = getattr(torch, c["dtype"])
+    res, x = (torch.from_numpy(r.standard_normal((c["rows"], c["d"]),
+                                                  np.float32)).to(card, dt)
+              for _ in range(2))
+    scale = torch.from_numpy(0.5 + r.random(c["d"], np.float32)).to(card, dt)
+    before = rr.residual_rmsnorm.launches
+    got_res, got = rr.residual_rmsnorm(res, x, scale)
+    torch.cuda.synchronize()
+    assert rr.residual_rmsnorm.launches == before + 1
+    want_res, want = residual_rmsnorm_plain(res, x, scale)
+    assert got.dtype == got_res.dtype == dt
+    torch.testing.assert_close(got_res, want_res, rtol=0, atol=0)
+    tol = (_tol32(c["d"]) if dt == torch.float32
+           else dict(rtol=2**-7, atol=1e-6))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+FLASH_CASES = [
+    dict(),  # kernel_cases.GRID: b=1, sq=64, K=2, G=2, dh=16
+    dict(sq=200, dh=32),
+    dict(b=2, kheads=1, g=4, dh=8),
+    dict(int8_kv=True),
+    dict(sq=130, kheads=3, g=1, int8_kv=True),
+    dict(sq=100, causal=False),
+    dict(sq=512, kheads=8, g=4, dh=128, dtype="bfloat16"),
+    dict(b=2, sq=77, kheads=2, g=2, dh=64, dtype="bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain(card, case):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import quantize_kv_int8
+
+    c = dict(seed=0, b=1, sq=64, kheads=2, g=2, dh=16, int8_kv=False,
+             causal=True, dtype="float32") | case
+    r = _rng(c["seed"])
+    dt = getattr(torch, c["dtype"])
+    q = torch.from_numpy(r.standard_normal(
+        (c["b"], c["sq"], c["kheads"], c["g"], c["dh"]), np.float32))
+    k, v = (torch.from_numpy(r.standard_normal(
+        (c["b"], c["sq"], c["kheads"], c["dh"]), np.float32))
+        for _ in range(2))
+    q, k, v = (t.to(card, dt) for t in (q, k, v))
+    kw = {}
+    if c["int8_kv"]:  # through the dispatch wrapper's dequant boundary
+        (k, ks), (v, vs) = quantize_kv_int8(k), quantize_kv_int8(v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    before = fa.flash_attention.launches
+    got = ops._cuda_flash_attention(q, k, v, causal=c["causal"], **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    if c["int8_kv"]:
+        k = (k.float() * kw["k_scale"][..., None]).to(dt)
+        v = (v.float() * kw["v_scale"][..., None]).to(dt)
+    want = fa.flash_attention_plain(q, k, v, causal=c["causal"])
+    assert got.shape == want.shape and got.dtype == dt
+    if dt == torch.float32:
+        tol = _tol32(c["sq"])
+        tol = dict(rtol=4 * tol["rtol"], atol=4 * tol["atol"])  # slack 4
+    else:
+        tol = dict(rtol=2**-7, atol=2**-7 * v.float().abs().mean().item())
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("case", [dict(m=8, k=4096, n=1024),
+                                  dict(m=130, k=257, n=140, act="silu",
+                                       residual=True),
+                                  dict(m=256, k=512, n=384, act="gelu")],
+                         ids=str)
+def test_matmul_epilogue_reads_bf16_operands_in_place(card, case):
+    """bf16 operands: the kernel's f32 result is bit for bit that of the
+    same values through its f32 path, within tol_from_acc of the plain
+    version, and the wrapper's bf16 output within one bf16 rounding."""
+    from repro_torch.kernels import matmul_epilogue as me
+
+    c = dict(seed=0, act="none", residual=False) | case
+    r = _rng(c["seed"])
+    m, k, n = c["m"], c["k"], c["n"]
+    bf = torch.bfloat16
+    x = torch.from_numpy(r.standard_normal((m, k), np.float32)).to(card, bf)
+    w = torch.from_numpy(r.standard_normal((k, n), np.float32)
+                         / np.sqrt(k)).to(card, bf)
+    res = (torch.from_numpy(r.standard_normal((m, n), np.float32)).to(card, bf)
+           if c["residual"] else None)
+    es = torch.ones(n, device=card)
+    eb = torch.zeros(n, device=card)
+    got = me._launch(x, w, es, eb, res, c["act"])
+    f32_path = me._launch(x.float(), w.float(), es, eb,
+                          None if res is None else res.float(), c["act"])
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got, f32_path)
+    want = me._plain(x, w, es, eb, res, c["act"])
+    torch.testing.assert_close(got, want, **_tol32(k))
+    before = me.matmul_epilogue.launches
+    out = me.matmul_epilogue(x, w, act=c["act"], residual=res)
+    assert me.matmul_epilogue.launches == before + 1 and out.dtype == bf
+    torch.testing.assert_close(
+        out.float(), me.matmul_epilogue_plain(x, w, act=c["act"],
+                                              residual=res).float(),
+        rtol=2**-7, atol=1e-6)

@@ -27,7 +27,7 @@ from repro_torch.runtime.faults import FaultInjector  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORTED = ("fused_conv", "matmul_epilogue", "pool", "depthwise_conv",
-          "sep_block")
+          "sep_block", "residual_rmsnorm", "flash_attention")
 
 
 def _lenet_program(**kw):
@@ -95,6 +95,31 @@ def test_launcher_serves_on_cpu_when_asked(capsys):
     tserve.main(["--cnn", "lenet5", "--requests", "6", "--max-batch", "4",
                  "--device", "cpu"])
     assert '"completed": 6' in capsys.readouterr().out
+
+
+def test_lm_launcher_serves_the_smoke_variant_on_cpu(capsys, monkeypatch):
+    m = tserve.main(["--arch", "qwen3-8b", "--smoke", "--lm", "--requests",
+                     "5", "--max-new", "3", "--slots", "2", "--kv-quant",
+                     "int8", "--device", "cpu"])
+    assert m["completed"] == 5 and m["tokens_total"] == 15
+    assert m["kv_quant"] == "int8" and m["errors"] == 0
+    assert "0 new buckets after warmup" in capsys.readouterr().out
+    with pytest.raises(SystemExit):  # --arch serves through the LM tier
+        tserve.main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.main(["--arch", "qwen3-8b", "--smoke", "--lm"])
+
+
+def test_arch_registry_serves_the_dense_family_only():
+    from repro_torch.configs import get_arch, list_archs
+
+    assert list_archs() == ["granite-3-2b", "qwen3-8b", "starcoder2-3b"]
+    assert get_arch("qwen3-8b").family == "dense"
+    with pytest.raises(NotImplementedError, match="rwkv"):
+        get_arch("rwkv6-1.6b")
+    with pytest.raises(KeyError):
+        get_arch("no-such-arch")
 
 
 @pytest.mark.parametrize("level", ["v0", "v1", "v2", "v3", "v4"])

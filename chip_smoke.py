@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """The port's quickest proof on one CUDA card: build the kernels, hold each
-against its plain PyTorch version, then serve ResNet50, MobileNetV2 and
-qwen3-8b at v4.
+against its plain PyTorch version, then serve ResNet50, MobileNetV2,
+qwen3-8b and rwkv6-1.6b at v4.
 
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a traceback and a non-zero exit):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels of ``src/repro_torch/csrc`` (one nvcc call);
+2. build the CUDA kernels of ``src/repro_torch/csrc`` (one nvcc per
+   source, in parallel, and the link);
 3a. before the script sets any TF32 flag: ResNet50 at v0 (the plain
    baselines) on the card with both TF32 flags on (cuDNN's default) must
    match the same forward on the CPU within relative L2 1e-4 and leave the
@@ -66,26 +67,59 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 6d. 32 requests (``lm_prompts``, 16 new tokens each) served through
    ``prog.serve(mode="lm", kv_quant="int8", slots=8, max_len=64)`` with
    the counts from 0: 36 residual_rmsnorm and 216 matmul_epilogue launches
-   per decode step, 0 compile misses after warmup, and the streams of the
-   first 8 requests of each bucket equal to a static padded-batch decode of
-   the same prompts through the same program; tokens/s, TTFT and
-   inter-token p50/p99 printed;
+   per decode step, 0 compile misses after warmup, and all 32 streams equal
+   to a static padded-batch decode of the same prompts from a fresh state,
+   each in the lane (slot) it had in the engine, through the same program;
+   tokens/s, TTFT and inter-token p50/p99 printed;
 6e. the same model with its depth cut to 2 layers (a 36-layer CPU forward
    of 15 GB is out of reach): the v4 prefill logits (B = 1, S = 64) on the
    card against the same program on the CPU within ``E2E_LIMIT``, two to
    three times the card program's response to one-ulp noise on every
    site's input; the flash kernel with its causal mask dropped (planted)
    must exceed it;
-7. the ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` last line.
+8a. rwkv6-1.6b at full width and depth in bf16 (24 layers, d_model 2048,
+   32 heads of 64, d_ff 7168, vocab 65536; 1.45 B parameters drawn on the
+   card from a CUDA generator, seed 0), compiled at v4: class ``rnn_lm``,
+   wkv_chunk, matmul_epilogue and mac_matmul_int8 bound to ``cuda``, no
+   residual_rmsnorm;
+8b. one recorded prefill forward at B = 4, S = 512 (8 chunks of 64):
+   exactly 24 wkv_chunk and 48 matmul_epilogue launches, every one held
+   (``wkv_tol``: the error carried through the chunks from each column's
+   own decay sum, beside the recurrence on |r|, |k|, |v|, |u|, |s0|), each
+   shape timed beside its bound and library call (none for the
+   recurrence), the forward's wall time beside its kernels' device time;
+   every launch must be flagged when the kernel's bonus term is dropped or
+   its contractions take bf16 operands, and most when they take TF32
+   operands (planted);
+8c. one recorded decode step at 8 slots: 0 launches (the reference's
+   decode runs mac_matmul and plain ops only); its wall time;
+8d. 32 requests through ``prog.serve(mode="lm", kv_quant=None, slots=8,
+   max_len=64)`` with the counts from 0: 0 launches per decode step, 0
+   compile misses after warmup, the recurrent rows of every slot zero at
+   admission, and all 32 streams equal to a static decode of the same
+   prompts from a fresh state in the same lanes; tokens/s, TTFT and
+   inter-token p50/p99 printed;
+8e. the same model cut to 2 layers: v4 prefill logits (B = 1, S = 64) on
+   the card against the same program on the CPU within ``E2E_LIMIT``; the
+   wkv kernel without its decay (lw = 0, planted) must exceed it, and the
+   wkv with bf16 and with TF32 contractions is read against it;
+8f. mac_matmul_int8, which no model path reaches: ``kernel_cases.GRID``'s
+   three cases and rwkv6-1.6b's GEMM shapes at M = 8 and 2048 through the
+   wrapper, and ``layers.mac_matmul(x, None, quant=quantize_weight(w))``
+   under the v4 rnn_lm table, each equal to the plain int32 sum; each case
+   timed beside ``torch._int_mm`` and the scale (its operands zero-padded
+   to what ``_int_mm`` takes) and its bound;
+9. the ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` last line.
 
 Per-launch tolerances.  The GEMM-shaped holds (``matmul_epilogue``, the
 separable block's pointwise contraction, both products of flash attention)
 bound each output element by K * eps32 times the magnitude of its products
 (``gemm_tol``, ``flash_tol``: the plain products run on |a|, |b|), plus the
 epilogue's roundings and, for bf16 results, one rounding to bf16; the
-integer kernels agree within 1e-5 (exact int32 sums), the pools exactly or
-within 1e-6, and the norm within the bound of its mean of squares
-(``rmsnorm_case``).
+integer kernels agree within 1e-5 (exact int32 sums; mac_matmul_int8
+exactly), the pools exactly or within 1e-6, the norm within the bound of
+its mean of squares (``rmsnorm_case``), and the wkv recurrence within
+``wkv_tol``.
 
 After phase 3a, TF32 is off for every f32 product and convolution of the
 plain versions and yardsticks (``torch.backends.cuda.matmul.allow_tf32``
@@ -119,7 +153,8 @@ UNIT_ROUNDOFF = {"torch.float32": 2.0**-24, "torch.bfloat16": 2.0**-8}
 # (PERF.md)
 E2E_LIMIT = {"resnet50 v4": 2e-2, "mobilenetv2 v4": 1e-1,
              "mobilenetv2 v2": 2e-1, "mobilenetv1 v4": 2e-2,
-             "densenet121 v4": 1e-2, "qwen3-8b 2-layer v4": 5e-2}
+             "densenet121 v4": 1e-2, "qwen3-8b 2-layer v4": 5e-2,
+             "rwkv6-1.6b 2-layer v4": 4e-2}
 V0_LIMIT = 1e-4  # the v0 forward on the card vs the CPU
 
 
@@ -528,6 +563,135 @@ def flash_case(args, timed=True):
     return label, err, tol, ms, plain, lib, b
 
 
+def wkv_tol(args, want, want_s):
+    """Per-element bounds on the wkv kernel's difference from its plain
+    version, for the output and the final state: twice the bound E on each
+    side's error against the exact recurrence, which this function carries
+    through the chunks beside the magnitude state Ms (the recurrence on
+    |r|, |k|, |v|, |u|, |s0| with the same decays).  In chunk c, column i
+    of head (b, h) sums lam = sum_t |lw[t, i]|; every cumsum of it, in any
+    order, is within (C - 1) u lam of exact (u = eps/2; the terms share one
+    sign), so every decay factor (an exp of a difference of two cumsums,
+    with its own few ulp) is within rho = ((2 C + 1) lam + 4) u of its own
+    value, relatively.  Each term of the from-state and intra-chunk sums of
+    column i then carries rho + (N + C + 5) u, the bonus (N + 5) u, and
+    the from-state term also the state's own error E_S; the state update
+    E_S' = exp(cum[-1]) E_S + (rho + (C + 3) u) Ms'.  Tight enough to see
+    TF32 operands (2**-11 relative) in the recurrence, and far tighter
+    than one worst chunk sum L for every column and chunk."""
+    import torch
+    from repro_torch.kernels.ref import NEG_INF, full_f32
+
+    r, k, v, lw, u, s0, chunk = args
+    n, s_len = r.shape[-1], r.shape[1]
+    unit = F32_EPS / 2
+    ra, ka, va, ua = (t.float().abs() for t in (r, k, v, u))
+    ms = s0.float().abs()
+    es = torch.zeros_like(ms)
+    tri = (torch.arange(chunk, device=r.device)[:, None]
+           > torch.arange(chunk, device=r.device)[None, :])
+    outs = []
+    with full_f32():
+        for c0 in range(0, s_len, chunk):
+            rc, kc, vc = (t[:, c0:c0 + chunk] for t in (ra, ka, va))
+            lwc = lw[:, c0:c0 + chunk].float()
+            cum = torch.cumsum(lwc, dim=1)
+            cx = cum - lwc
+            rho = unit * ((2 * chunk + 1) * cum[:, -1].abs() + 4)  # (B,H,N)
+            w = rho + (n + chunk + 5) * unit
+            o_state = torch.einsum("bthi,bhij->bthj", rc * torch.exp(cx),
+                                   w[..., None] * ms + es)
+            dec = torch.exp(torch.where(tri[None, :, :, None, None],
+                                        cx[:, :, None] - cum[:, None],
+                                        NEG_INF))
+            a_ = (rc[:, :, None] * (kc * w[:, None])[:, None] * dec).sum(-1)
+            o_intra = torch.einsum("btsh,bshj->bthj", a_, vc)
+            bonus = (rc * ua * kc).sum(-1)[..., None] * vc * ((n + 5) * unit)
+            outs.append(o_state + o_intra + bonus)
+            d_end = torch.exp(cum[:, -1])[..., None]
+            ms_new = d_end * ms + torch.einsum(
+                "bthi,bthj->bhij", kc * torch.exp(cum[:, -1:] - cum), vc)
+            es = d_end * es + (rho + (chunk + 3) * unit)[..., None] * ms_new
+            ms = ms_new
+    e_out = torch.cat(outs, dim=1)
+    return (2.4 * e_out + 4 * F32_EPS * want.abs() + 1e-30,
+            2.4 * es + 4 * F32_EPS * want_s.abs() + 1e-30)
+
+
+def wkv_case(args, timed=True):
+    from repro_torch.kernels import wkv_chunk as wk
+    from repro_torch.kernels.ref import wkv_chunk_ref
+
+    r, k, v, lw, u, s0, chunk = args
+    got, got_s = wk._launch(*args)
+    want, want_s = wkv_chunk_ref(*args)
+    tol, tol_s = wkv_tol(args, want, want_s)
+    err, ratio = held(got, want, tol)
+    err_s, ratio_s = held(got_s, want_s, tol_s)
+    b, s_len, h, n = r.shape
+    assert max(ratio, ratio_s) <= 1.0, ("wkv_chunk", tuple(r.shape), chunk,
+                                        err, ratio, err_s, ratio_s)
+    # r, k, v, lw in and out, u, s0 in and the final state out, f32; the
+    # r.S readout and k v^T update (4 N^2 a token and head) and the causal
+    # half of A and of A v (2 C N)
+    nbytes = 4 * (5 * r.numel() + u.numel() + 2 * s0.numel())
+    b_ = bound(nbytes, {"f32": b * s_len * h * (4 * n * n + 2 * chunk * n)})
+    label = f"wkv_chunk B={b} S={s_len} H={h} N={n} chunk={chunk}"
+    tol_s_ = (f"|err| <= wkv_tol, worst {max(ratio, ratio_s):.3f} of it "
+              f"(state max_abs_err {err_s:.3e})")
+    err = max(err, err_s)
+    if not timed:
+        return untimed(label, err, tol_s_, b_)
+    ms = time_ms(lambda: wk._launch(*args))
+    plain = time_ms(lambda: wkv_chunk_ref(*args), reps=5)
+    return label, err, tol_s_, ms, plain, None, b_
+
+
+def int_mm_yardstick(x, w, scale):
+    """torch._int_mm plus the scale multiply on copies zero-padded to what
+    it takes (M > 16, K and N multiples of 8): the same sums."""
+    import torch
+    import torch.nn.functional as F
+
+    m, k = x.shape
+    n = w.shape[1]
+    mp = max(24, -(-m // 8) * 8)
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    xp = F.pad(x, (0, kp - k, 0, mp - m))
+    wp = F.pad(w, (0, np_ - n, 0, kp - k))
+    sp = F.pad(scale.float().reshape(-1), (0, np_ - n))
+    return (lambda: torch._int_mm(xp, wp).float() * sp), (mp, kp, np_)
+
+
+def mac_case(args, timed=True):
+    import torch
+    from repro_torch.kernels import mac_matmul as mm
+
+    x, w, scale = args
+    got = mm._launch(x, w, scale)
+    want = mm.mac_matmul_int8_ref(x, w, scale)
+    assert torch.equal(got, want), ("mac_matmul_int8", tuple(x.shape),
+                                    tuple(w.shape))
+    m, k = x.shape
+    n = w.shape[1]
+    nbytes = x.numel() + w.numel() + 4 * n + 4 * m * n
+    b = bound(nbytes, {"int8": 2 * m * k * n})
+    form = "skinny" if m <= mm.SKINNY_ROWS else "tiled"
+    splits, _ = mm.splits_for(m, k, n, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    label = f"mac_matmul_int8 M={m} K={k} N={n} ({form}, {splits} K slices)"
+    tol = "equal (exact int32 sums)"
+    if not timed:
+        return untimed(label, 0.0, tol, b)
+    ms = time_ms(lambda: mm._launch(x, w, scale))
+    plain = time_ms(lambda: mm.mac_matmul_int8_ref(x, w, scale))
+    lib_fn, padded = int_mm_yardstick(x, w, scale)
+    assert torch.equal(lib_fn()[:m, :n], want), "the yardstick differs"
+    lib = time_ms(lib_fn)
+    return (f"{label} (library on M, K, N padded to {padded})", 0.0, tol, ms,
+            plain, lib, b)
+
+
 KERNELS = {
     # name: (case fn, source, replaces, the forward its times are summed over)
     "fused_conv": (conv_case, "src/repro_torch/csrc/fused_conv.cu",
@@ -552,6 +716,12 @@ KERNELS = {
     "flash_attention": (flash_case, "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:87",
                         "qwen3-8b v4 prefill"),
+    "wkv_chunk": (wkv_case, "src/repro_torch/csrc/wkv_chunk.cu",
+                  "src/repro/kernels/wkv_chunk.py:86",
+                  "rwkv6-1.6b v4 prefill"),
+    "mac_matmul_int8": (mac_case, "src/repro_torch/csrc/mac_matmul.cu",
+                        "src/repro/kernels/mac_matmul.py:58",
+                        "mac_matmul_int8 cases"),
 }
 
 # launches per batch-8 forward, as the reference dispatches them
@@ -572,6 +742,11 @@ PER_FORWARD = {
     "qwen3-8b v4 prefill": {"flash_attention": 36, "residual_rmsnorm": 36,
                             "matmul_epilogue": 216},
     "qwen3-8b v4 decode": {"residual_rmsnorm": 36, "matmul_epilogue": 216},
+    # rwkv6-1.6b, 24 layers: the wkv recurrence and the wo and cm_v
+    # projections per layer in the prefill; decode runs only mac_matmul
+    # (no kernel in either package) and plain ops, as in the reference
+    "rwkv6-1.6b v4 prefill": {"wkv_chunk": 24, "matmul_epilogue": 48},
+    "rwkv6-1.6b v4 decode": {},
 }
 
 
@@ -579,9 +754,11 @@ def wrappers():
     from repro_torch.kernels import depthwise_conv as dw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_conv as fc
+    from repro_torch.kernels import mac_matmul as mm
     from repro_torch.kernels import matmul_epilogue as me
     from repro_torch.kernels import pooling as pk
     from repro_torch.kernels import residual_rmsnorm as rr
+    from repro_torch.kernels import wkv_chunk as wk
 
     return {"fused_conv": fc.fused_conv_int8,
             "matmul_epilogue": me.matmul_epilogue,
@@ -590,7 +767,9 @@ def wrappers():
             "depthwise_conv": dw.depthwise_conv_int8,
             "sep_block": dw.sep_block_int8,
             "residual_rmsnorm": rr.residual_rmsnorm,
-            "flash_attention": fa.flash_attention}
+            "flash_attention": fa.flash_attention,
+            "wkv_chunk": wk.wkv_chunk,
+            "mac_matmul_int8": mm.mac_matmul_int8}
 
 
 @contextlib.contextmanager
@@ -615,9 +794,11 @@ def record_launches(prog, *x):
     from repro_torch.kernels import depthwise_conv as dw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_conv as fc
+    from repro_torch.kernels import mac_matmul as mm
     from repro_torch.kernels import matmul_epilogue as me
     from repro_torch.kernels import pooling as pk
     from repro_torch.kernels import residual_rmsnorm as rr
+    from repro_torch.kernels import wkv_chunk as wk
 
     seen: dict[str, dict] = {k: {} for k in KERNELS}
     patched = [(fc, "_launch", "fused_conv"), (me, "_launch", "matmul_epilogue"),
@@ -626,7 +807,9 @@ def record_launches(prog, *x):
                (dw, "_launch_dw", "depthwise_conv"),
                (dw, "_launch_sep", "sep_block"),
                (rr, "_launch", "residual_rmsnorm"),
-               (fa, "_launch", "flash_attention")]
+               (fa, "_launch", "flash_attention"),
+               (wk, "_launch", "wkv_chunk"),
+               (mm, "_launch", "mac_matmul_int8")]
     originals = []
     for mod, attr, name in patched:
         orig = getattr(mod, attr)
@@ -990,7 +1173,57 @@ LM_ARCH = "qwen3-8b"
 LM_PREFILL = (4, 512)  # (B, S) of the recorded prefill forward
 LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW = 8, 64, 16
 LM_E2E = (1, 64)  # (B, S) of the card-vs-CPU check, depth cut to 2 layers
-LM_STREAMS_PER_BUCKET = 8
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_numel(v) for v in tree)
+    return tree.numel()
+
+
+def serve_streams_check(engine, params, cfg, run, prompts, placed, done,
+                        kv_quant=None):
+    """Every served stream against a static decode from a fresh state
+    through the engine's own decode step, each prompt in the lane (slot) it
+    had in the engine: group g holds the g-th occupant of each slot of a
+    bucket, the other lanes a filler prompt.  Every op of a decode step is
+    row-wise, so a lane's tokens depend on its own prompt alone."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.lm_server import static_decode
+
+    by_uid = {r.uid: r for r in done}
+    slots = engine.engine.slots
+    checked = 0
+    for bucket in sorted({b for _, b, _ in placed}):
+        occupants: dict[int, list[int]] = {}
+        for uid, b, slot in placed:
+            if b == bucket:
+                occupants.setdefault(slot, []).append(uid)
+        for g in range(max(len(v) for v in occupants.values())):
+            lanes = [occupants.get(slot, [])[g:g + 1] for slot in range(slots)]
+            lane_prompts = [prompts[u[0]] if u else [1] for u in lanes]
+            st = T.init_decode_state(params, cfg, run, batch=slots,
+                                     max_len=bucket, kv_quant=kv_quant)
+            streams = static_decode(
+                lambda s_, t_: engine.engine._decode_fn(params, s_, t_), st,
+                lane_prompts, LM_MAX_NEW, cfg.vocab)
+            for u, stream in zip(lanes, streams):
+                if u:
+                    assert by_uid[u[0]].generated == stream, (bucket, u)
+                    checked += 1
+    torch.cuda.synchronize()
+    return checked
 
 
 def lm_program(params, cfg, run, tokens, dev):
@@ -1026,7 +1259,6 @@ def lm_phases(dev, card):
     from repro_torch.configs import RunConfig, get_arch
     from repro_torch.launch.serve import lm_prompts
     from repro_torch.models import transformer as T
-    from repro_torch.runtime.lm_server import static_decode
 
     # 6a) build on the card and compile at v4
     cfg = get_arch(LM_ARCH)
@@ -1035,10 +1267,7 @@ def lm_phases(dev, card):
     t0 = time.perf_counter()
     params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in params["embed"].values()) + sum(
-        t.numel() for layer in params["layers"]
-        for sub in layer.values()
-        for t in (sub.values() if isinstance(sub, dict) else (sub,)))
+    n_params = tree_numel(params)
     log(f"{LM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.3f} B parameters in {cfg.param_dtype} drawn on "
         f"the card in {time.perf_counter() - t0:.1f} s; "
@@ -1113,13 +1342,13 @@ def lm_phases(dev, card):
     engine = prog.serve(mode="lm", cfg=cfg, run=run, kv_quant="int8",
                         slots=LM_SLOTS, max_len=LM_MAX_LEN)
     prompts = lm_prompts(cfg.vocab, N_REQUESTS)
-    placed: dict[int, list[int]] = {}
+    placed: list[tuple[int, int, int]] = []  # (uid, bucket, slot)
     alloc = engine.engine.manager.alloc
 
     def placing(uid, total_len):
         got = alloc(uid, total_len)
         if got is not None:
-            placed.setdefault(got[0], []).append(uid)
+            placed.append((uid, *got))
         return got
 
     engine.engine.manager.alloc = placing
@@ -1154,22 +1383,12 @@ def lm_phases(dev, card):
         f"{m['intertoken_p99_ms']:.2f} ms, {steps} decode steps, "
         f"0 compile misses after warmup, on {card}")
     log(f"{LM_ARCH} v4 serve: launches on the main path: {launches}")
-    by_uid = {r.uid: r for r in done}
-    checked = 0
-    for bucket, uids in sorted(placed.items()):
-        uids = uids[:LM_STREAMS_PER_BUCKET]
-        st = T.init_decode_state(params, cfg, run, batch=LM_SLOTS,
-                                 max_len=bucket, kv_quant="int8")
-        ref_streams = static_decode(
-            lambda s_, t_: engine.engine._decode_fn(params, s_, t_), st,
-            [prompts[u] for u in uids], LM_MAX_NEW, cfg.vocab)
-        for u, stream in zip(uids, ref_streams):
-            assert by_uid[u].generated == stream, (bucket, u)
-            checked += 1
-    assert checked >= 4, checked
-    log(f"{LM_ARCH} v4 serve: {checked} request streams equal a static "
-        f"decode of the same prompts through the same program "
-        f"(buckets {sorted(placed)})")
+    checked = serve_streams_check(engine, params, cfg, run, prompts, placed,
+                                  done, kv_quant="int8")
+    assert checked == N_REQUESTS, checked
+    log(f"{LM_ARCH} v4 serve: all {checked} request streams equal a static "
+        f"decode of the same prompts from a fresh state in the same lanes "
+        f"through the same program")
     del engine, state
     torch.cuda.empty_cache()
 
@@ -1179,17 +1398,12 @@ def lm_phases(dev, card):
                "layers": params["layers"][:2]}
     e2e_tokens = rng.integers(1, cfg.vocab, LM_E2E).astype(np.int32)
     prog2 = lm_program(params2, cut, run, e2e_tokens, dev)
-    params2_cpu = {"embed": {"table": params["embed"]["table"].cpu()},
-                   "ln_f": params["ln_f"].cpu(),
-                   "layers": [{k: ({kk: vv.cpu() for kk, vv in v.items()}
-                                   if isinstance(v, dict) else v.cpu())
-                               for k, v in layer.items()}
-                              for layer in params2["layers"]]}
     from repro_torch import marvel
 
     cpu_prog = marvel.compile(
         lambda p, t: T.forward_lm(p, t, cut, run)[0], e2e_tokens,
-        params=params2_cpu, level="v4", backend="cuda", device="cpu")
+        params=tree_to(params2, "cpu"), level="v4", backend="cuda",
+        device="cpu")
     t0 = time.perf_counter()
     want = cpu_prog(e2e_tokens)
     cpu_s = time.perf_counter() - t0
@@ -1206,6 +1420,350 @@ def lm_phases(dev, card):
     assert bad > limit, ("planted no-causal-mask fault passed", bad, limit)
     assert rel <= limit, rel
     return prefill, dec, counts, launches
+
+
+# ---------------------------------------------------------------------------
+# the rnn_lm path: rwkv6-1.6b at full width, and mac_matmul_int8
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_PREFILL = (4, 512)  # (B, S): 8 chunks of 64
+RWKV_E2E = (1, 64)  # (B, S) of the card-vs-CPU check, depth cut to 2 layers
+# mac_matmul_int8's cases (M, K, N): kernel_cases.GRID's three, then
+# rwkv6-1.6b's GEMM shapes at 8 decode slots and at a 2048-row prefill
+MAC_CASES = [(130, 257, 140), (64, 96, 32), (1, 256, 128),
+             (8, 2048, 2048), (8, 2048, 7168), (8, 7168, 2048),
+             (2048, 2048, 7168)]
+MAC_PATH = ("no model path in the reference; held on GRID and rwkv6-1.6b "
+            "shapes")
+
+
+def wkv_rounded(fn):
+    """A wrong wkv kernel: the plain version with the operands of its
+    contractions (r exp(cx) and the state, r and k of A, A and v, the
+    decayed k and v of the state update, r and u k of the bonus) passed
+    through ``fn``, as a kernel on TF32 or bf16 tensor-core operands would
+    see them.  The model's r, k and v are bf16 values already, so rounding
+    only the inputs would leave most of them as they are."""
+    import torch
+    from repro_torch.kernels.ref import NEG_INF, full_f32
+
+    def launch(r, k, v, lw, u, s0, chunk):
+        s = s0.float()
+        tri = (torch.arange(chunk, device=r.device)[:, None]
+               > torch.arange(chunk, device=r.device)[None, :])
+        outs = []
+        with full_f32():
+            for c0 in range(0, r.shape[1], chunk):
+                rc, kc, vc, lwc = (t[:, c0:c0 + chunk].float()
+                                   for t in (r, k, v, lw))
+                cum = torch.cumsum(lwc, dim=1)
+                cx = cum - lwc
+                o_state = torch.einsum("bthi,bhij->bthj",
+                                       fn(rc * torch.exp(cx)), fn(s))
+                dec = torch.exp(torch.where(tri[None, :, :, None, None],
+                                            cx[:, :, None] - cum[:, None],
+                                            NEG_INF))
+                a_ = (fn(rc)[:, :, None] * fn(kc)[:, None] * dec).sum(-1)
+                o_intra = torch.einsum("btsh,bshj->bthj", fn(a_), fn(vc))
+                bonus = (fn(rc) * fn(u.float() * kc)).sum(-1)[..., None]
+                outs.append(o_state + o_intra + bonus * vc)
+                s = torch.exp(cum[:, -1])[..., None] * s + torch.einsum(
+                    "bthi,bthj->bhij",
+                    fn(kc * torch.exp(cum[:, -1:] - cum)), fn(vc))
+        return torch.cat(outs, dim=1), s
+
+    return launch
+
+
+def wkv_faults():
+    """Wrong wkv launchers: {fault: (launcher, how many of the prefill's
+    launches the per-launch tolerance must flag: "all" or "most")}."""
+    from repro_torch.kernels import wkv_chunk as wk
+
+    real = wk._launch
+    return {
+        "bonus term dropped": (
+            lambda r, k, v, lw, u, s0, c: real(r, k, v, lw, u * 0, s0, c),
+            "all"),
+        "bf16 contractions": (wkv_rounded(lambda t: t.bfloat16().float()),
+                              "all"),
+        "TF32 contractions": (
+            wkv_rounded(lambda t: tf32_round(t.contiguous())), "most"),
+    }
+
+
+def wkv_fault_holds(recorded) -> None:
+    """The per-launch holds' power against wrong wkv kernels: every
+    recorded launch of the prefill must be flagged when the bonus term is
+    dropped or the contractions take bf16 operands, and more than half
+    when they take TF32 operands."""
+    from repro_torch.kernels.ref import wkv_chunk_ref
+
+    launches = [args for _, first, later in recorded["wkv_chunk"].values()
+                for args in (first, *later)]
+    readings = {f: [] for f in wkv_faults()}
+    for args in launches:
+        want, want_s = wkv_chunk_ref(*args)
+        tol, tol_s = wkv_tol(args, want, want_s)
+        for fault, (launch, _) in wkv_faults().items():
+            bad, bad_s = launch(*args)
+            readings[fault].append(max(held(bad, want, tol)[1],
+                                       held(bad_s, want_s, tol_s)[1]))
+    for fault, (_, must) in wkv_faults().items():
+        ratios = readings[fault]
+        flagged = sum(x > 1.0 for x in ratios)
+        log(f"{RWKV_ARCH}: planted fault 'wkv kernel with {fault}': the "
+            f"per-launch tolerance flags {flagged} of {len(ratios)} launches "
+            f"(readings {min(ratios):.2f} to {max(ratios):.2f} times the "
+            f"bound)")
+        ok = (flagged == len(ratios) if must == "all"
+              else 2 * flagged > len(ratios))
+        assert ok, f"the wkv holds miss a wkv kernel with {fault}"
+
+
+def rwkv_phases(dev, card):
+    """8a-8e: rwkv6-1.6b at full width and depth in bf16 on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import marvel
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.serve import lm_prompts
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.kvcache import POSITION_LEAVES
+
+    # 8a) build on the card and compile at v4
+    cfg = get_arch(RWKV_ARCH)
+    run = RunConfig(seq_len=RWKV_PREFILL[1], global_batch=RWKV_PREFILL[0],
+                    mode="prefill")
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    log(f"{RWKV_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}: {tree_numel(params) / 1e9:.3f} "
+        f"B parameters in {cfg.param_dtype} (w0, u in f32) drawn on the "
+        f"card in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    prog = lm_program(params, cfg, run, np.ones((1, 8), np.int32), dev)
+    assert prog.model_class == "rnn_lm", prog.model_class
+    for pat in ("wkv_chunk", "matmul_epilogue", "mac_matmul_int8"):
+        assert prog.resolved_extensions.get(pat) == "cuda", prog.table
+    assert "residual_rmsnorm" not in prog.table, prog.table
+    log(f"compiled {RWKV_ARCH} v4: {prog.summary()}")
+    rng = np.random.default_rng(8)
+
+    # 8b) one recorded prefill forward, every launch held
+    b, s = RWKV_PREFILL
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (b, s)).astype(
+        np.int32)).to(dev)
+    rec, counts, logits = record_launches(prog, tokens)
+    check_counts(f"{RWKV_ARCH} v4 prefill", counts)
+    assert logits.shape == (b, s, cfg.vocab_padded), logits.shape
+    assert torch.isfinite(logits).all(), "non-finite prefill logits"
+    log(f"{RWKV_ARCH} v4 prefill B={b} S={s}: launches {counts}")
+    del logits
+    prefill = hold(rec, ("wkv_chunk", "matmul_epilogue"), timed=True)
+    wkv_fault_holds(rec)
+    del rec
+    torch.cuda.empty_cache()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog(tokens)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"{RWKV_ARCH} v4 prefill B={b} S={s}: forward "
+        f"{statistics.median(walls):.2f} ms wall (median of 3), of which its "
+        f"kernels' device time " + ", ".join(
+            f"{k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
+            f"{max(r['t_bytes'], r['t_ops']):.3f})"
+            for k, r in prefill.items()) + f" on {card}")
+
+    # 8c) one recorded decode step at LM_SLOTS slots: mac_matmul and plain
+    # ops only, as in the reference, so no kernel launches
+    decode = prog.table.bind(
+        lambda st, tk: T.decode_step(params, st, tk, cfg, run))
+    state = T.init_decode_state(params, cfg, run, batch=LM_SLOTS,
+                                max_len=LM_MAX_LEN)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (LM_SLOTS, 1)).astype(
+        np.int32)).to(dev)
+    with torch.inference_mode():
+        for _ in range(8):
+            _, state = decode(state, toks)
+        _, counts, (step_logits, _) = record_launches(decode, state, toks)
+        check_counts(f"{RWKV_ARCH} v4 decode", counts)
+        assert torch.isfinite(step_logits).all()
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode(state, toks)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"{RWKV_ARCH} v4 decode step, {LM_SLOTS} slots: launches {counts}; "
+        f"{statistics.median(walls):.2f} ms wall (median of 5) on {card}")
+    del state
+
+    # 8d) serve through the continuous-batching tier
+    engine = prog.serve(mode="lm", cfg=cfg, run=run, kv_quant=None,
+                        slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    prompts = lm_prompts(cfg.vocab, N_REQUESTS)
+    mgr = engine.engine.manager
+    placed: list[tuple[int, int, int]] = []  # (uid, bucket, slot)
+    stale: list[tuple[int, str]] = []  # recurrent rows not zero at admission
+    alloc = mgr.alloc
+
+    def placing(uid, total_len):
+        got = alloc(uid, total_len)
+        if got is not None:
+            bucket, slot = got
+            for name, t in mgr.pools[bucket].state["cache"].items():
+                if name not in POSITION_LEAVES and bool(t[:, slot].any()):
+                    stale.append((uid, name))
+            placed.append((uid, bucket, slot))
+        return got
+
+    mgr.alloc = placing
+
+    async def serve():
+        async with engine:
+            engine.warmup()
+            misses = engine.engine.compile_misses
+            steps = engine.engine.decode_steps
+            with counted() as launches:
+                t0 = time.perf_counter()
+                done = await engine.submit_wave(prompts,
+                                                max_new_tokens=LM_MAX_NEW)
+                dt = time.perf_counter() - t0
+            return (done, dt, launches, engine.engine.decode_steps - steps,
+                    engine.engine.compile_misses - misses, engine.metrics())
+
+    done, dt, launches, steps, new_misses, m = asyncio.run(serve())
+    assert len(done) == N_REQUESTS and all(
+        r.done and r.error is None and len(r.generated) == LM_MAX_NEW
+        for r in done), "rwkv requests failed"
+    assert m["errors"] == 0 and new_misses == 0, (m, new_misses)
+    check_counts(f"{RWKV_ARCH} v4 decode", launches, steps)
+    reused = len(placed) - len({(b_, s_) for _, b_, s_ in placed})
+    assert not stale, f"recurrent rows not zeroed at admission: {stale}"
+    assert reused >= N_REQUESTS // 2, reused
+    toks_out = sum(len(r.generated) for r in done)
+    log(f"{RWKV_ARCH} v4 serve, {LM_SLOTS} slots, buckets "
+        f"{mgr.bucket_lens}: {N_REQUESTS} requests, {toks_out} tokens in "
+        f"{dt:.3f} s: {toks_out / dt:.1f} tokens/s, TTFT p50 "
+        f"{m['ttft_p50_ms']:.1f} ms p99 {m['ttft_p99_ms']:.1f} ms, "
+        f"inter-token p50 {m['intertoken_p50_ms']:.2f} ms p99 "
+        f"{m['intertoken_p99_ms']:.2f} ms, {steps} decode steps, 0 kernel "
+        f"launches and 0 compile misses after warmup, on {card}")
+    checked = serve_streams_check(engine, params, cfg, run, prompts, placed,
+                                  done)
+    assert checked == N_REQUESTS, checked
+    log(f"{RWKV_ARCH} v4 serve: all {checked} request streams equal a "
+        f"static decode of the same prompts from a fresh state in the same "
+        f"lanes; the {reused} admissions to a reused slot found its "
+        f"recurrent rows zero")
+    del engine
+    torch.cuda.empty_cache()
+
+    # 8e) full width, depth cut to 2 layers: the card against the CPU
+    from repro_torch.kernels import wkv_chunk as wk
+
+    cut = cfg.replace(n_layers=2)
+    params2 = dict(params, layers=params["layers"][:2])
+    e2e_tokens = rng.integers(1, cfg.vocab, RWKV_E2E).astype(np.int32)
+    prog2 = lm_program(params2, cut, run, e2e_tokens, dev)
+    cpu_prog = marvel.compile(
+        lambda p, t: T.forward_lm(p, t, cut, run)[0], e2e_tokens,
+        params=tree_to(params2, "cpu"), level="v4", backend="cuda",
+        device="cpu")
+    t0 = time.perf_counter()
+    want = cpu_prog(e2e_tokens)
+    cpu_s = time.perf_counter() - t0
+    tok_dev = torch.from_numpy(e2e_tokens).to(dev)
+    got = prog2(tok_dev).cpu()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    rel = rel_l2(got, want)
+    sites = site_noise_response(prog2, tok_dev, got)
+    real = wk._launch
+    faults = {"without its decay (lw = 0)": lambda r, k, v, lw, u, s0, c:
+              real(r, k, v, lw * 0, u, s0, c)}
+    faults.update({f"with {f}": launch for f, (launch, _) in
+                   wkv_faults().items() if f != "bonus term dropped"})
+    bad = {}
+    for fault, launch in faults.items():
+        wk._launch = launch
+        try:
+            bad[fault] = rel_l2(prog2(tok_dev).cpu(), want)
+        finally:
+            wk._launch = real
+    limit = E2E_LIMIT[f"{RWKV_ARCH} 2-layer v4"]
+    log(f"{RWKV_ARCH} 2-layer (depth cut from {cfg.n_layers}) v4 "
+        f"B={RWKV_E2E[0]} S={RWKV_E2E[1]}: logits vs the CPU program "
+        f"({cpu_s:.1f} s there) relative L2 {rel:.3e} (limit {limit:g}); "
+        f"response to one-ulp noise on every site's input (max of 3) "
+        f"{sites:.3e}; planted faults (only the first must exceed the "
+        f"limit): " + ", ".join(f"'wkv kernel {f}' {x:.3e}"
+                                for f, x in bad.items()))
+    no_decay = bad["without its decay (lw = 0)"]
+    assert no_decay > limit, ("planted no-decay fault passed", no_decay,
+                              limit)
+    assert rel <= limit, rel
+    return prefill
+
+
+def mac_phase(dev, card):
+    """8f: mac_matmul_int8, which no model path reaches: every case through
+    the wrapper (counted) and through ``layers.mac_matmul(x, None,
+    quant=quantize_weight(w))`` under the v4 rnn_lm table, each held
+    exactly against the plain int32 sum; then each case timed."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dispatch
+    from repro_torch.core.extensions import resolve_table
+    from repro_torch.kernels import mac_matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.quant.ptq import quantize_weight
+
+    rng = np.random.default_rng(9)
+    cases = []
+    for m, k, n in MAC_CASES:
+        x = torch.from_numpy(rng.integers(-127, 128, (m, k), np.int8)).to(dev)
+        w = torch.from_numpy(rng.integers(-127, 128, (k, n), np.int8)).to(dev)
+        sc = torch.from_numpy((rng.random(n) * 0.02).astype(np.float32)).to(
+            dev)
+        cases.append((x, w, sc))
+    xf = torch.from_numpy(rng.standard_normal((LM_SLOTS, 2048)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    q = quantize_weight(torch.from_numpy(
+        (rng.standard_normal((2048, 2048)) / np.sqrt(2048)).astype(
+            np.float32)).to(dev, torch.bfloat16))
+    table = resolve_table("v4", "cuda", model_class="rnn_lm")
+    with counted() as launches:
+        outs = [mm.mac_matmul_int8(*args) for args in cases]
+        with dispatch.use_table(table):
+            via_layer = L.mac_matmul(xf, None, quant=q)
+    for args, got in zip(cases, outs):
+        assert torch.equal(got, mm.mac_matmul_int8_ref(*args)), [
+            tuple(a.shape) for a in args]
+    codes, xs = ops._quant_rows(xf)
+    want = (mm.mac_matmul_int8_ref(codes, q["w_int8"], q["scale"]) * xs).to(
+        xf.dtype)
+    assert torch.equal(via_layer, want), "layers.mac_matmul(quant=...)"
+    assert launches["mac_matmul_int8"] == len(cases) + 1, launches
+    log(f"mac_matmul_int8: {launches['mac_matmul_int8']} wrapper launches "
+        f"held exactly ({len(cases)} cases and layers.mac_matmul(quant=...) "
+        f"at M={LM_SLOTS} K=N=2048 under the v4 rnn_lm table)")
+    recorded = {"mac_matmul_int8": {i: [1, args, []]
+                                    for i, args in enumerate(cases)}}
+    res = hold(recorded, ("mac_matmul_int8",), timed=True)
+    log(f"mac_matmul_int8: its {len(cases)} cases on {card}: kernel "
+        f"{res['mac_matmul_int8']['ms']:.4f} ms, plain "
+        f"{res['mac_matmul_int8']['plain_ms']:.4f} ms, torch._int_mm "
+        f"{res['mac_matmul_int8']['library_ms']:.4f} ms in all")
+    return res, launches["mac_matmul_int8"]
 
 
 def main() -> int:
@@ -1327,7 +1885,15 @@ def main() -> int:
     results.update({k: v for k, v in prefill.items()
                     if KERNELS[k][3] == f"{LM_ARCH} v4 prefill"})
 
-    # 7) the kernels line, then the device line
+    # 8) the rnn_lm path: rwkv6-1.6b at full width; mac_matmul_int8 on its
+    # cases
+    rwkv_prefill = rwkv_phases(dev, card)
+    results.update({k: v for k, v in rwkv_prefill.items()
+                    if KERNELS[k][3] == f"{RWKV_ARCH} v4 prefill"})
+    mac_results, mac_launches = mac_phase(dev, card)
+    results.update(mac_results)
+
+    # 9) the kernels line, then the device line
     path_launches = {k: launches[k] for k in PER_FORWARD["resnet50 v4"]}
     path_launches["sep_block"] = mlaunches["sep_block"]
     path_launches["depthwise_conv"] = path_counts["mobilenetv2 v2"][
@@ -1335,11 +1901,17 @@ def main() -> int:
     path_launches["residual_rmsnorm"] = lm_launches["residual_rmsnorm"]
     path_launches["flash_attention"] = prefill["flash_attention"][
         "per_forward"]
+    path_launches["wkv_chunk"] = rwkv_prefill["wkv_chunk"]["per_forward"]
+    path_launches["mac_matmul_int8"] = mac_launches
     paths = {"sep_block": "mobilenetv2 v4 serve",
              "depthwise_conv": "mobilenetv2 v2 forward",
              "residual_rmsnorm": f"{LM_ARCH} v4 serve",
-             "flash_attention": f"{LM_ARCH} v4 prefill forward"}
-    batches = {"qwen3-8b v4 prefill": "B=%d S=%d" % LM_PREFILL}
+             "flash_attention": f"{LM_ARCH} v4 prefill forward",
+             "wkv_chunk": f"{RWKV_ARCH} v4 prefill forward",
+             "mac_matmul_int8": MAC_PATH}
+    batches = {"qwen3-8b v4 prefill": "B=%d S=%d" % LM_PREFILL,
+               f"{RWKV_ARCH} v4 prefill": "B=%d S=%d" % RWKV_PREFILL,
+               "mac_matmul_int8 cases": "(M, K, N) in %s" % (MAC_CASES,)}
     kernels = []
     for name, (_, source, replaces, forward) in KERNELS.items():
         agg = results[name]

@@ -2,8 +2,8 @@
 copy of the reference's ``configs/registry.py`` for the families the port
 serves).
 
-The port serves the ``dense`` family so far; :func:`get_arch` names the
-reference's other archs and refuses them with the reason.
+The port serves the ``dense`` and ``rwkv`` families so far; :func:`get_arch`
+names the reference's other archs and refuses them with the reason.
 """
 from __future__ import annotations
 
@@ -24,8 +24,9 @@ ARCH_FAMILIES = {
     "hymba-1.5b": "hybrid",
     "rwkv6-1.6b": "rwkv",
 }
-SERVED_FAMILIES = ("dense",)
-ARCH_IDS = ["granite-3-2b", "qwen3-8b", "starcoder2-3b"]  # configs copied
+SERVED_FAMILIES = ("dense", "rwkv")
+ARCH_IDS = ["granite-3-2b", "qwen3-8b", "starcoder2-3b",
+            "rwkv6-1.6b"]  # configs copied
 
 
 def _module_name(arch_id: str) -> str:
@@ -51,7 +52,7 @@ def list_archs() -> list[str]:
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     """Reduced same-family config for CPU smoke tests (small widths and
     depth), as the reference's."""
-    return cfg.replace(
+    kw = dict(
         n_layers=2,
         d_model=128,
         n_heads=4,
@@ -60,3 +61,6 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
         d_ff=256,
         vocab=512,
     )
+    if cfg.family == "rwkv":
+        kw.update(rwkv_head_dim=32, d_model=128, d_ff=256)
+    return cfg.replace(**kw)

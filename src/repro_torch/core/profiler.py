@@ -11,7 +11,7 @@ Two sources feed one profile, as in the reference's ``core/profiler.py``:
      (``acc_mac``, ``acc_flops``, ``conv_epilogue``, ``dw_mac_flops``,
      ``dw_epilogue``, ``sep_intermediate``, ``pool_flops``,
      ``pool_epilogue``, ``pool_int8``, ``attn_scores``, ``attn_flops``,
-     ``rmsnorm_epilogue``).
+     ``wkv_flops``, ``rmsnorm_epilogue``).
 
 A model's stack of layers runs through :func:`scan`, the port's
 ``lax.scan``: while a profile records, its body runs once, as the
@@ -162,6 +162,11 @@ def _record_pseudo_sites(s: list, pattern: str, args, kwargs) -> None:
         skv = k.shape[1]
         s.append(("attn_scores", int(2 * 4 * b * kh * g * sq * skv)))
         s.append(("attn_flops", int(2 * 2 * b * kh * g * sq * skv * dh)))
+    if pattern == "wkv_chunk" and len(args) >= 4 and args[0].ndim == 4:
+        # the recurrence's weight-less contractions: the r.S readout and
+        # the k v^T state update, (N, N) per head per token
+        b, s_len, h, n = args[0].shape
+        s.append(("wkv_flops", int(4 * b * s_len * h * n * n)))
     if pattern == "residual_rmsnorm" and args:
         # what the unfused form round-trips: the res + x sum, written by
         # the add and read by the norm, in f32

@@ -1,6 +1,7 @@
 """Build the CUDA kernels of ``repro_torch/csrc`` and bind them with ctypes.
 
-At first use, one ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a``
+At first use, one ``nvcc`` per ``csrc/*.cu``, all started together,
+compiles each source for ``sm_90a`` into an object, and one more links them
 into one shared library with a plain C interface, under the repository's
 ``build/kernels/`` (listed in ``.gitignore``), named by a hash of the
 sources and flags so an edit rebuilds and an unchanged tree reuses it.
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every entry point (pointers and the stream as c_void_p, so
@@ -40,6 +41,8 @@ SIGNATURES = {
     "marvel_sep_block": (_P,) * 9 + (_I,) * 16 + (_P,),
     "marvel_residual_rmsnorm": (_P,) * 5 + (_I, _I, _F, _I, _P),
     "marvel_flash_attention": (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _P),
+    "marvel_wkv_chunk": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "marvel_mac_matmul_int8": (_P,) * 5 + (_I,) * 5 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -68,22 +71,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmarvel_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> None:
+    """Wait for every (command, process); raise on the first failure."""
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile the library if no build of these sources exists."""
+    """Compile the library if no build of these sources exists: one nvcc
+    per source in parallel, then the link."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    _run(procs)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *(str(o) for o in objs)]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True))])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     build_seconds = time.perf_counter() - t0
     return out

@@ -21,10 +21,12 @@ from repro_torch.core import dispatch
 from repro_torch.kernels import depthwise_conv as dw
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_conv as fc
+from repro_torch.kernels import mac_matmul as mm
 from repro_torch.kernels import matmul_epilogue as me
 from repro_torch.kernels import pooling as pk
 from repro_torch.kernels import ref
 from repro_torch.kernels import residual_rmsnorm as rr
+from repro_torch.kernels import wkv_chunk as wk
 from repro_torch.kernels.common import (
     conv_kernel_eligible, conv_residual_fusable, depthwise_kernel_eligible,
     gemm_residual_fusable, sep_kernel_eligible,
@@ -46,6 +48,25 @@ def _quant_int8(a, axes=None):
     amax = af.abs().amax() if axes is None else af.abs().amax(dim=axes)
     s = torch.clamp_min(amax, 1e-8) / 127.0
     return torch.clamp(torch.round(af / s), -127, 127).to(torch.int8), s
+
+
+def _quant_rows(x2):
+    """Dynamic per-row int8 activation quantization of (M, K) rows: the
+    scale ``max(absmax, 1e-8) / 127`` per row and the codes ``round(x /
+    s)`` (half to even) clipped to +-127, bit for bit the reference's."""
+    xf = x2.float()
+    xs = torch.clamp_min(xf.abs().amax(dim=1, keepdim=True), 1e-8) / 127.0
+    return torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8), xs
+
+
+def _cuda_mac_matmul_int8(x, quant):
+    """mac: int8 weights ``{"w_int8", "scale"}`` against int8 activations
+    quantized per row on the fly, the dequant folded after the kernel."""
+    w_int8, scale = quant["w_int8"], quant["scale"]
+    x2 = x.reshape(-1, x.shape[-1])
+    x_int8, xs = _quant_rows(x2)
+    out = mm.mac_matmul_int8(x_int8, w_int8, scale.reshape(-1)) * xs
+    return out.reshape(*x.shape[:-1], w_int8.shape[-1]).to(x.dtype)
 
 
 def _cuda_fused_conv(x, w, b=None, *, stride=1, padding="SAME", groups=1,
@@ -202,8 +223,15 @@ def _cuda_flash_attention(q, k, v, *, causal=True, q_offset=0,
     return fa.flash_attention(q, k, v, causal=causal)
 
 
+def _cuda_wkv_chunk(r, k, v, lw, u, s0, chunk):
+    """zol (rnn_lm): the chunked WKV recurrence (S % chunk == 0)."""
+    return wk.wkv_chunk(r, k, v, lw, u, s0, chunk=chunk)
+
+
 def register():
     cuda = ("cuda",)
+    dispatch.register_impl("mac_matmul_int8", "cuda", _cuda_mac_matmul_int8,
+                           platforms=cuda)
     dispatch.register_impl("fused_conv", "cuda", _cuda_fused_conv,
                            platforms=cuda)
     dispatch.register_impl("matmul_epilogue", "cuda", _cuda_matmul_epilogue,
@@ -216,6 +244,8 @@ def register():
     dispatch.register_impl("residual_rmsnorm", "cuda", _cuda_residual_rmsnorm,
                            platforms=cuda)
     dispatch.register_impl("flash_attention", "cuda", _cuda_flash_attention,
+                           platforms=cuda)
+    dispatch.register_impl("wkv_chunk", "cuda", _cuda_wkv_chunk,
                            platforms=cuda)
 
 

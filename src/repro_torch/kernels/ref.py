@@ -1,7 +1,9 @@
 """Plain PyTorch baselines: the oracles the dispatch wrappers fall back to
 when a site is outside a kernel's guards, the v0 arithmetic of the model
-sites, and the plain versions of the LM kernels (``residual_rmsnorm``,
-``flash_attention``) with the int8-KV dequant.
+sites, the plain versions of the LM kernels (``residual_rmsnorm``,
+``flash_attention``) with the int8-KV dequant, and of the rnn_lm kernels
+(``mac_matmul_int8``, the chunked ``wkv_chunk`` and its token-by-token
+oracle).
 
 Every float product and convolution here runs under :func:`full_f32`: on a
 CUDA tensor, cuDNN would otherwise run a float32 convolution in TF32 (its
@@ -173,3 +175,73 @@ def dequant_kv(codes, scales, dtype):
     """int8 KV codes with per-(position, head) f32 scale planes -> ``dtype``
     (the rank-1 dequant the reference applies at the attention boundary)."""
     return (codes.float() * scales[..., None]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# the rnn_lm kernels' plain versions
+# ---------------------------------------------------------------------------
+
+
+def mac_matmul_int8_ref(x_int8, w_int8, scale, out_dtype=torch.float32):
+    """The mac kernel's function (``src/repro/kernels/mac_matmul.py::
+    _kernel``): ``x @ w`` summed exactly (float64 holds every int32 sum of
+    int8 products exactly, and cuBLAS has no int32 product), then
+    ``f32(acc) * scale`` per output column."""
+    with full_f32():
+        acc = x_int8.double() @ w_int8.double()
+    return (acc.float() * scale.float().reshape(1, -1)).to(out_dtype)
+
+
+def wkv_chunk_ref(r, k, v, lw, u, s0, chunk):
+    """Chunked WKV (``src/repro/models/rwkv.py::_wkv_chunk_ref``).
+    r, k, v: (B, S, H, N); lw: (B, S, H, N) log-decay (< 0); u: (H, N);
+    s0: (B, H, N, N); S % chunk == 0.  Returns (out (B, S, H, N) f32,
+    s_final (B, H, N, N) f32).
+
+    Per chunk, in log space: the from-state term ``(r * exp(cum_excl)) @ s``,
+    the intra-chunk term ``A @ v`` with ``A[t, s] = sum_i r[t, i] k[s, i]
+    exp(cum_excl[t, i] - cum[s, i])`` for s < t (every exponent <= 0), the
+    diagonal bonus ``(r . u*k) v``, and the state decayed to the chunk's
+    end: ``exp(cum[-1]) * s + (k * exp(cum[-1] - cum))^T v``."""
+    b, s_len, h, n = r.shape
+    s = s0.float()
+    tri = (torch.arange(chunk, device=r.device)[:, None]
+           > torch.arange(chunk, device=r.device)[None, :])
+    uf = u.float()
+    outs = []
+    with full_f32():
+        for c0 in range(0, s_len, chunk):
+            rc, kc, vc, lwc = (t[:, c0:c0 + chunk].float()
+                               for t in (r, k, v, lw))  # (B, c, H, N)
+            cum = torch.cumsum(lwc, dim=1)  # inclusive
+            cum_excl = cum - lwc
+            o_state = torch.einsum("bthi,bhij->bthj", rc * torch.exp(cum_excl),
+                                   s)
+            diff = cum_excl[:, :, None] - cum[:, None, :]  # (B, t, s, H, N)
+            dec = torch.exp(torch.where(tri[None, :, :, None, None], diff,
+                                        NEG_INF))
+            a = (rc[:, :, None] * kc[:, None] * dec).sum(-1)  # (B, t, s, H)
+            o_intra = torch.einsum("btsh,bshj->bthj", a, vc)
+            bonus = (rc * (uf * kc)).sum(-1)  # (B, t, H)
+            o_diag = bonus[..., None] * vc
+            dec_end = torch.exp(cum[:, -1:] - cum)
+            s = torch.exp(cum[:, -1])[..., None] * s + torch.einsum(
+                "bthi,bthj->bhij", kc * dec_end, vc)
+            outs.append(o_state + o_intra + o_diag)
+    return torch.cat(outs, dim=1), s
+
+
+def wkv_ref_sequential(r, k, v, lw, u, s0):
+    """Token-by-token WKV recurrence, the ground-truth oracle
+    (``src/repro/kernels/ref.py::wkv_ref_sequential``):
+    ``o_t = r_t (S + u*k_t v_t^T)``, ``S <- exp(lw_t) S + k_t v_t^T``."""
+    s = s0.float()
+    uf = u.float()[None, :, :, None]
+    outs = []
+    with full_f32():
+        for t in range(r.shape[1]):
+            rt, kt, vt, lwt = (a[:, t].float() for a in (r, k, v, lw))
+            kv = kt[..., :, None] * vt[..., None, :]  # (B, H, N, N)
+            outs.append(torch.einsum("bhi,bhij->bhj", rt, s + uf * kv))
+            s = torch.exp(lwt)[..., None] * s + kv
+    return torch.stack(outs, dim=1), s

@@ -3,6 +3,7 @@
     python -m repro_torch.launch.serve --cnn resnet50 --requests 32
     python -m repro_torch.launch.serve --arch qwen3-8b --lm --requests 32 \
         --kv-quant int8
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --lm --requests 32
 
 compiles the model at v4 (``marvel.compile``: profile -> classify -> the
 class's extension table -> the hand-written CUDA kernels), serves a seeded
@@ -124,7 +125,7 @@ def main(argv=None):
                            "resnet50, mobilenetv2, densenet121)")
     what.add_argument("--arch",
                       help="LM to serve with --lm (qwen3-8b, granite-3-2b, "
-                           "starcoder2-3b)")
+                           "starcoder2-3b, rwkv6-1.6b)")
     ap.add_argument("--lm", action="store_true",
                     help="serve --arch through the continuous-batching tier")
     ap.add_argument("--smoke", action="store_true",
@@ -135,7 +136,9 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=16)
-    ap.add_argument("--kv-quant", choices=("int8",), default=None)
+    ap.add_argument("--kv-quant", choices=("int8",), default=None,
+                    help="int8 KV cache (attention families; rwkv's "
+                         "recurrent state refuses it)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain versions)")
     args = ap.parse_args(argv)

@@ -72,6 +72,16 @@ def residual_rmsnorm(res, x, scale, eps=1e-6):
                          scale, eps)
 
 
+def layer_norm(x, scale, bias, eps=1e-5):
+    """LayerNorm (RWKV's) in f32 with the population variance, cast back to
+    x's dtype; not a dispatch site, as in the reference."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # matmul patterns (mac / fusedmac)
 # ---------------------------------------------------------------------------

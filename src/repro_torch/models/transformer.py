@@ -1,19 +1,26 @@
-"""LM assembly for the dense family (granite, qwen3, starcoder2), the
-counterpart of the reference's ``models/transformer.py``.
+"""LM assembly for the dense family (granite, qwen3, starcoder2) and the
+rwkv family (rwkv6), the counterpart of the reference's
+``models/transformer.py``.
 
 Params are a dict: ``{"embed": {"table": (V, d)}, "ln_f": (d,), "layers":
-[one dict per layer]}``; a layer holds ``ln1``, ``attn``, ``ln2`` and
-``mlp``.  The reference stacks the layers on a leading axis and scans them;
-here a list runs in a Python loop (:func:`repro_torch.core.profiler.scan`,
-which the profiler sees once per program site, as the reference's traced
-scan body).  :func:`params_from_jax` converts the reference's tree.
+[one dict per layer]}``; a dense layer holds ``ln1``, ``attn``, ``ln2`` and
+``mlp``, an rwkv layer the flat dict of :func:`repro_torch.models.rwkv.
+rwkv_layer_init`, and rwkv adds the top-level ``ln0_s``/``ln0_b`` LayerNorm
+after the embedding.  The reference stacks the layers on a leading axis and
+scans them; here a list runs in a Python loop (:func:`repro_torch.core.
+profiler.scan`, which the profiler sees once per program site, as the
+reference's traced scan body).  :func:`params_from_jax` converts the
+reference's tree.
 
-The decode state is ``{"index": (B,) int32, "cache": {"k", "v": (L, B, Smax,
-K, dh)}}``, with int8 ``k``/``v`` and f32 ``k_scale``/``v_scale`` (L, B, Smax,
-K) planes when ``kv_quant="int8"``.  :func:`decode_step` writes each lane's
-new K/V into the cache in place and returns a new ``index``.
+The decode state is ``{"index": (B,) int32, "cache": {...}}``.  Dense: the
+cache is ``{"k", "v": (L, B, Smax, K, dh)}``, with int8 ``k``/``v`` and f32
+``k_scale``/``v_scale`` (L, B, Smax, K) planes when ``kv_quant="int8"``;
+:func:`decode_step` writes each lane's new K/V into it in place.  rwkv: the
+recurrent state ``{"s": (L, B, H, N, N) f32, "tm_prev", "cm_prev": (L, B,
+d)}``, with no position axis; :func:`decode_step` returns it in new
+tensors.  Either way the step returns a new ``index``.
 
-The other families (moe, mla, hybrid, enc_dec, rwkv) come with later slices.
+The other families (moe, mla, hybrid, enc_dec) come with later slices.
 """
 from __future__ import annotations
 
@@ -23,8 +30,9 @@ import torch
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import profiler
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv as RWKV
 
-FAMILIES = ("dense",)
+FAMILIES = ("dense", "rwkv")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -68,7 +76,13 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
                               device=device),
         "ln_f": torch.ones(cfg.d_model, dtype=dtype, device=device),
     }
-    params["layers"] = [_dense_layer_init(gen, cfg, dtype, device)
+    if cfg.family == "rwkv":
+        params["ln0_s"] = torch.ones(cfg.d_model, dtype=dtype, device=device)
+        params["ln0_b"] = torch.zeros(cfg.d_model, dtype=dtype, device=device)
+        layer_init = RWKV.rwkv_layer_init
+    else:
+        layer_init = _dense_layer_init
+    params["layers"] = [layer_init(gen, cfg, dtype, device)
                         for _ in range(cfg.n_layers)]
     return params
 
@@ -91,15 +105,17 @@ def _map(tree, fn):
 def params_from_jax(tree, cfg: ArchConfig, device="cpu") -> dict:
     """The reference's param tree (numpy leaves, bf16 as ``ml_dtypes``,
     layers stacked on a leading L axis) -> the port's, on ``device``, bit
-    for bit."""
+    for bit, every leaf in its own dtype (rwkv's ``w0`` and ``u`` f32)."""
     _check_family(cfg)
-    n_layers = np.asarray(tree["layers"]["ln1"]).shape[0]
-    return {
-        "embed": {"table": _to_torch(tree["embed"]["table"], device)},
-        "ln_f": _to_torch(tree["ln_f"], device),
-        "layers": [_map(tree["layers"], lambda a, i=i: _to_torch(
-            np.asarray(a)[i], device)) for i in range(n_layers)],
-    }
+    first = tree["layers"]
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    n_layers = np.asarray(first).shape[0]
+    out = {name: _map(sub, lambda a: _to_torch(a, device))
+           for name, sub in tree.items() if name != "layers"}
+    out["layers"] = [_map(tree["layers"], lambda a, i=i: _to_torch(
+        np.asarray(a)[i], device)) for i in range(n_layers)]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -120,10 +136,15 @@ def forward_hidden(params, tokens, cfg: ArchConfig, run: RunConfig):
     """tokens: (B, S) -> (hidden (B, S, d), aux, prefix_len)."""
     _check_family(cfg)
     x = L.embed_lookup(params["embed"], tokens)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = profiler.scan(
-        lambda p, x: _block_dense(p, x, cfg, run, positions), x,
-        params["layers"])
+    if cfg.family == "rwkv":
+        x = L.layer_norm(x, params["ln0_s"], params["ln0_b"])
+        body = lambda p, x: RWKV.rwkv_block(  # noqa: E731
+            p, x, cfg, chunk=run.wkv_chunk)
+    else:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        body = lambda p, x: _block_dense(  # noqa: E731
+            p, x, cfg, run, positions)
+    x = profiler.scan(body, x, params["layers"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps), aux, 0
 
@@ -141,14 +162,29 @@ def forward_lm(params, tokens, cfg: ArchConfig, run: RunConfig):
 
 def init_decode_state(params, cfg: ArchConfig, run: RunConfig, batch: int,
                       max_len: int, kv_quant=None) -> dict:
-    """The per-layer KV cache (leading L axis) and the per-lane position
-    index, on the params' device.  ``kv_quant="int8"`` stores the pools as
-    int8 codes with per-(position, head) f32 scale planes (4x smaller)."""
+    """The per-layer cache (leading L axis) and the per-lane position
+    index, on the params' device.  ``kv_quant="int8"`` stores the KV pools
+    as int8 codes with per-(position, head) f32 scale planes (4x smaller);
+    rwkv's recurrent state has no KV layout and refuses it, as the
+    reference does."""
     del run
     _check_family(cfg)
     table = params["embed"]["table"]
     dev, dtype = table.device, table.dtype
     n_layers = len(params["layers"])
+    if cfg.family == "rwkv":
+        cache = {name: t.new_zeros((n_layers, *t.shape)) for name, t in
+                 RWKV.rwkv_init_state(cfg, batch, dtype, dev).items()}
+        if kv_quant is not None:
+            if kv_quant != "int8":
+                raise ValueError(
+                    f"unknown kv_quant {kv_quant!r} (want 'int8')")
+            raise ValueError(
+                "kv_quant='int8' needs a {'k','v'} cache layout; this family "
+                f"caches {sorted(cache)} (MLA/paired-MoE/RWKV are "
+                "unsupported)")
+        return {"index": torch.zeros(batch, dtype=torch.int32, device=dev),
+                "cache": cache}
     kv, dh = cfg.n_kv_heads, cfg.d_head
     smax = (min(max_len, cfg.sliding_window) if cfg.sliding_window
             else max_len)
@@ -170,22 +206,34 @@ def init_decode_state(params, cfg: ArchConfig, run: RunConfig, batch: int,
 
 
 def decode_step(params, state, tokens, cfg: ArchConfig, run: RunConfig):
-    """tokens: (B, 1) -> (logits (B, 1, V_padded), new state).  The new
-    state holds the same cache (its rows at each lane's index written in
-    place) and ``index + 1``; the old state's index is untouched, so a step
-    may be repeated from it (retry, warmup)."""
+    """tokens: (B, 1) -> (logits (B, 1, V_padded), new state).  Dense: the
+    new state holds the same cache (its rows at each lane's index written
+    in place) and ``index + 1``; the old state's index is untouched, so a
+    step may be repeated from it (retry, warmup).  rwkv: the new state's
+    recurrent cache is new tensors and the old state is untouched."""
     del run
     _check_family(cfg)
     idx = state["index"]
     cache = state["cache"]
     x = L.embed_lookup(params["embed"], tokens)
-    window = cfg.sliding_window or None
-    for i, p in enumerate(params["layers"]):
-        c = {name: t[i] for name, t in cache.items()}
-        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-        a, _ = L.attention_decode(p["attn"], h, c, idx, cfg, window=window)
-        x, h2 = L.residual_rmsnorm(x, a, p["ln2"], cfg.norm_eps)
-        x = L.mlp(p["mlp"], h2, cfg, residual=x)  # acc_mac skip-add
+    if cfg.family == "rwkv":
+        x = L.layer_norm(x, params["ln0_s"], params["ln0_b"])
+        steps = []
+        for i, p in enumerate(params["layers"]):
+            x, c2 = RWKV.rwkv_block_decode(
+                p, x, {name: t[i] for name, t in cache.items()}, cfg)
+            steps.append(c2)
+        cache = {name: torch.stack([c[name] for c in steps])
+                 for name in cache}
+    else:
+        window = cfg.sliding_window or None
+        for i, p in enumerate(params["layers"]):
+            c = {name: t[i] for name, t in cache.items()}
+            h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+            a, _ = L.attention_decode(p["attn"], h, c, idx, cfg,
+                                      window=window)
+            x, h2 = L.residual_rmsnorm(x, a, p["ln2"], cfg.norm_eps)
+            x = L.mlp(p["mlp"], h2, cfg, residual=x)  # acc_mac skip-add
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.embed_logits(params["embed"], x)
-    return logits, dict(state, index=idx + 1)
+    return logits, dict(state, cache=cache, index=idx + 1)

@@ -16,8 +16,12 @@ individual **slots** (lanes of the batch dimension):
   compile-cache counters).
 * **Slot reuse is free of cross-talk.** ``models.transformer.decode_step``
   masks attention past each lane's ``kv_len``, so stale KV data left by a
-  previous occupant of a slot never contributes; reclaiming a slot is just
-  resetting its position index to 0.
+  previous occupant of a slot never contributes: reclaiming a slot resets
+  its position index to 0.  A cache leaf with no position axis (rwkv's
+  recurrent state ``s``, ``tm_prev``, ``cm_prev``) has nothing to mask, so
+  its rows of the slot are zeroed as well: every leaf but the KV pools of
+  :data:`POSITION_LEAVES`.  (The reference resets only the index, and a
+  reused rwkv slot starts from its previous sequence's state.)
 * **int8 KV quantization** (``kv_quant="int8"``) stores the pools as int8
   codes with per-(position, head) f32 scale planes — 4x smaller cache —
   quantize-on-write / dequant inside the attention pattern, handled by
@@ -32,6 +36,12 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
+
+
+# the cache leaves with a position axis (L, B, Smax, ...): the attention KV
+# pools and their int8 scale planes, masked past each lane's kv_len; every
+# other cache leaf is recurrent state, zeroed when its slot is handed out
+POSITION_LEAVES = frozenset({"k", "v", "k_scale", "v_scale"})
 
 
 class SequenceTooLong(ValueError):
@@ -142,11 +152,11 @@ class KVCacheManager:
             if pool.free:
                 slot = pool.alloc(uid)
                 # reclaimed slot -> fresh sequence: position index back to 0
-                # (stale KV past kv_len is masked, so no pool zeroing needed);
-                # a new tensor, so a state an engine still holds is untouched
-                idx = pool.state["index"].clone()
-                idx[slot] = 0
-                pool.state["index"] = idx
+                # (stale KV past kv_len is masked, so the KV pools need no
+                # zeroing) and the slot's recurrent state rows to 0 (no
+                # position axis to mask them); new tensors, so a state an
+                # engine still holds is untouched
+                pool.state = _fresh_slot(pool.state, slot)
                 return b, slot
         return None
 
@@ -187,6 +197,19 @@ class KVCacheManager:
             "kv_buckets_live": len(self.pools),
             "kv_quant": self.kv_quant or "none",
         }
+
+
+def _fresh_slot(state: dict, slot: int) -> dict:
+    """``state`` with lane ``slot``'s position index and recurrent cache
+    rows zeroed, in new tensors."""
+    lane = torch.tensor([slot], device=state["index"].device)
+    out = dict(state, index=state["index"].index_fill(0, lane, 0))
+    cache = state.get("cache")
+    if cache is not None:
+        out["cache"] = {name: t if name in POSITION_LEAVES
+                        else t.index_fill(1, lane, 0)
+                        for name, t in cache.items()}
+    return out
 
 
 def _tensors(tree):

@@ -219,7 +219,9 @@ class ContinuousBatchEngine:
         accepted for supervisor warmup-replay parity and ignored: LM warmup
         is shape-independent.  The step's result is discarded: the pool
         keeps its index, and the K/V rows it wrote at each lane's index are
-        rewritten by that lane's next real step before they are read."""
+        rewritten by that lane's next real step before they are read (a
+        recurrent cache comes back in new tensors and the pool's is left as
+        it was)."""
         del in_shape, dtype
         toks = torch.zeros((self.slots, 1), dtype=torch.int32,
                            device=self.device)

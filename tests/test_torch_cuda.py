@@ -22,6 +22,14 @@ operands.  In f32 the tolerance is ``tol_from_acc(float32, K)`` (sum order
 over the reduction K); in bf16 the outputs may differ by one bf16 rounding
 (2**-7 relative), and flash attention's probabilities too (2**-7 of
 ``mean|v|`` absolute), where the two sum orders straddle a rounding edge.
+
+The rnn_lm kernels: ``mac_matmul_int8`` on the grid's three cases, a
+skinny ragged one and rwkv6-1.6b's GEMM shapes, equal to its plain version
+(exact int32 sums); ``wkv_chunk`` on the grid's three cases, the smoke
+model's and rwkv6-1.6b's head sizes and a decay strong enough that
+``exp(-cum)`` would overflow, within ``tol_from_acc(float32, S)`` with the
+conformance runner's slack of 8; a ragged S and a working set over the
+block's shared memory are refused, not run plain.
 """
 import numpy as np
 import pytest
@@ -374,3 +382,91 @@ def test_matmul_epilogue_reads_bf16_operands_in_place(card, case):
         out.float(), me.matmul_epilogue_plain(x, w, act=c["act"],
                                               residual=res).float(),
         rtol=2**-7, atol=1e-6)
+
+
+MAC_CASES = [
+    dict(m=130, k=257, n=140), dict(m=64, k=96, n=32),
+    dict(m=1, k=256, n=128),  # kernel_cases.GRID
+    dict(m=5, k=130, n=131),  # skinny with ragged K and N: byte loads
+    # rwkv6-1.6b's GEMM shapes at 8 decode slots and at a 2048-row prefill
+    dict(m=8, k=2048, n=2048), dict(m=8, k=2048, n=7168),
+    dict(m=8, k=7168, n=2048), dict(m=2048, k=2048, n=7168),
+]
+
+
+@pytest.mark.parametrize("case", MAC_CASES, ids=str)
+def test_mac_matmul_int8_kernel_matches_plain(card, case):
+    """Exact int32 sums and the same f32 scale product: equal."""
+    from repro_torch.kernels import mac_matmul as mm
+
+    m, k, n = case["m"], case["k"], case["n"]
+    r = _rng(0)
+    x = torch.from_numpy(r.integers(-127, 128, (m, k), np.int8)).to(card)
+    w = torch.from_numpy(r.integers(-127, 128, (k, n), np.int8)).to(card)
+    s = torch.from_numpy((r.random(n) * 0.02).astype(np.float32)).to(card)
+    before = mm.mac_matmul_int8.launches
+    got = mm.mac_matmul_int8(x, w, s)
+    torch.cuda.synchronize()
+    assert mm.mac_matmul_int8.launches == before + 1
+    assert torch.equal(got, mm.mac_matmul_int8_ref(x, w, s))
+
+
+WKV_CASES = [
+    dict(),  # kernel_cases.GRID: b=1, s=32, heads=2, n=8, chunk=16
+    dict(s=64, chunk=16, heads=3, n=16),
+    dict(b=2, s=48, chunk=48),
+    dict(b=2, s=16, heads=4, n=32, chunk=8),  # the smoke model's heads
+    dict(s=128, heads=4, n=64, chunk=64),  # rwkv6's heads
+    # strong decay: exp(-cum) over a chunk would overflow f32
+    dict(b=2, s=128, heads=8, n=64, chunk=64, decay=2.0),
+]
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=str)
+def test_wkv_chunk_kernel_matches_plain(card, case):
+    """f32 sums over N, the chunk and the chunks in another order, and
+    exps of cumsums summed in another order: tol_from_acc(float32, S)
+    with the conformance runner's slack of 8."""
+    from repro_torch.kernels import wkv_chunk as wk
+    from repro_torch.kernels.ref import wkv_chunk_ref
+
+    c = dict(b=1, s=32, heads=2, n=8, chunk=16, decay=0.0) | case
+    r = _rng(0)
+    shape = (c["b"], c["s"], c["heads"], c["n"])
+    rr, kk, vv = (torch.from_numpy(0.3 * r.standard_normal(shape, np.float32))
+                  for _ in range(3))
+    lw = -torch.from_numpy(np.exp(0.3 * r.standard_normal(shape, np.float32)
+                                  + c["decay"]))
+    u = torch.from_numpy(0.3 * r.standard_normal(shape[2:], np.float32))
+    s0 = torch.from_numpy(0.3 * r.standard_normal(
+        (c["b"], c["heads"], c["n"], c["n"]), np.float32))
+    args = [a.to(card) for a in (rr, kk, vv, lw, u, s0)]
+    before = wk.wkv_chunk.launches
+    got, got_s = wk.wkv_chunk(*args, chunk=c["chunk"])
+    torch.cuda.synchronize()
+    assert wk.wkv_chunk.launches == before + 1
+    want, want_s = wkv_chunk_ref(*args, c["chunk"])
+    assert torch.isfinite(got).all() and torch.isfinite(got_s).all()
+    t = _tol32(c["s"])
+    tol = dict(rtol=8 * t["rtol"], atol=8 * t["atol"])
+    torch.testing.assert_close(got, want, **tol)
+    torch.testing.assert_close(got_s, want_s, **tol)
+
+
+def test_wkv_chunk_refuses_what_the_kernel_cannot_run(card):
+    """A ragged S and a head size whose working set exceeds a block's
+    shared memory raise on the card; neither runs the plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import wkv_chunk as wk
+
+    def args(s, n):
+        z = torch.zeros((1, s, 2, n), device=card)
+        return (z, z, z, -torch.ones_like(z), torch.zeros((2, n), device=card),
+                torch.zeros((1, 2, n, n), device=card))
+
+    before = wk.wkv_chunk.launches
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ops._cuda_wkv_chunk(*args(100, 64), 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops._cuda_wkv_chunk(*args(128, 128), 64)
+    assert wk.wkv_chunk.launches == before

@@ -1,4 +1,5 @@
-"""The port's CNN kernels against the reference, on the CPU.
+"""The port's CNN kernels and the rnn_lm kernels (``mac_matmul_int8``,
+``wkv_chunk``) against the reference, on the CPU.
 
 Each kernel's plain PyTorch version (what its wrapper runs on CPU tensors)
 is held against the reference's Pallas kernel, run in interpret mode as the
@@ -12,7 +13,9 @@ the f32 epilogue rounds); matmul_epilogue ``tol_from_acc(dtype, K)`` (f32
 sums in another order); max pools equal; avg pools rtol 1e-6; the global
 average rtol 1e-6 with atol 1e-6, because a mean of signed values can sit
 near 0, where the order of an f32 sum over H*W moves the result by a few
-1e-8 absolute.
+1e-8 absolute; mac_matmul_int8 equal (exact int32 sums, the same f32
+scale products); wkv_chunk the reference conformance runner's
+``tol_from_acc(float32, S, slack=8)``.
 """
 import pytest
 
@@ -24,15 +27,22 @@ import numpy as np  # noqa: E402
 
 import kernel_cases as kc  # noqa: E402
 from repro.kernels import fused_conv as jfc  # noqa: E402
+from repro.kernels import mac_matmul as jmm  # noqa: E402
 from repro.kernels import matmul_epilogue as jme  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import pooling as jpk  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels import wkv_chunk as jwk  # noqa: E402
+from repro.quant import ptq as jptq  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels import fused_conv as tfc  # noqa: E402
+from repro_torch.kernels import mac_matmul as tmm  # noqa: E402
 from repro_torch.kernels import matmul_epilogue as tme  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import pooling as tpk  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels import wkv_chunk as twk  # noqa: E402
+from repro_torch.quant import ptq as tptq  # noqa: E402
 
 CONV_TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -261,4 +271,114 @@ def test_kernel_wrappers_refuse_tensors_off_cpu_and_cuda():
     with pytest.raises(RuntimeError, match="CPU"):
         tme.matmul_epilogue(torch.zeros((2, 3), device="meta"),
                             torch.zeros((3, 4), device="meta"))
+    i8 = dict(dtype=torch.int8, device="meta")
+    with pytest.raises(RuntimeError, match="CPU"):
+        tmm.mac_matmul_int8(torch.zeros((2, 3), **i8),
+                            torch.zeros((3, 4), **i8),
+                            torch.zeros(4, device="meta"))
+    z = torch.zeros((1, 4, 2, 8), device="meta")
+    with pytest.raises(RuntimeError, match="CPU"):
+        twk.wkv_chunk(z, z, z, z, torch.zeros((2, 8), device="meta"),
+                      torch.zeros((1, 2, 8, 8), device="meta"), chunk=4)
     assert common.runs_plain(torch.zeros(2), None)
+
+
+# ---------------------------------------------------------------------------
+# the rnn_lm kernels: mac_matmul_int8 and wkv_chunk
+# ---------------------------------------------------------------------------
+
+
+def mac_float_inputs(seed=0, m=64, k=96, n=32):
+    """f32 activations and weights for the quantizing wrapper."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+    return jnp.asarray(x), jnp.asarray(w)
+
+
+def wkv_inputs(seed=0, b=1, s=32, heads=2, n=8, chunk=16):
+    """The grid's WKV case (the conformance runner's defaults) with a
+    non-zero start state, so the from-state term is exercised too."""
+    r, k, v, lw, u, s0 = kc.wkv_case(seed, b, s, heads, n)
+    s0 = 0.3 * jax.random.normal(jax.random.PRNGKey(seed + 1), s0.shape)
+    return (r, k, v, lw, u, s0), chunk, kc.tol_from_acc(jnp.float32, s,
+                                                         slack=8.0)
+
+
+@pytest.mark.parametrize("case", grid("mac_matmul_int8"))
+def test_mac_matmul_plain_matches_pallas_kernel(case):
+    x, w, s = kc.mac_case(0, **case)
+    want = jmm.mac_matmul_int8(x, w, s)
+    before = tmm.mac_matmul_int8.launches
+    got = tmm.mac_matmul_int8(t(x), t(w), t(s))
+    assert tmm.mac_matmul_int8.launches == before  # CPU: the plain version
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", grid("mac_matmul_int8"))
+def test_mac_matmul_wrapper_matches_pallas_wrapper(case):
+    """Weights quantized per output channel, activations per row on the
+    fly: the codes and scales equal the reference's, then the outputs."""
+    x, w = mac_float_inputs(**case)
+    jq, tq = jptq.quantize_weight(w), tptq.quantize_weight(t(w))
+    np.testing.assert_array_equal(tq["w_int8"].numpy(), np.asarray(jq["w_int8"]))
+    np.testing.assert_array_equal(tq["scale"].numpy(), np.asarray(jq["scale"]))
+    np.testing.assert_array_equal(tptq.dequantize(tq).numpy(),
+                                  np.asarray(jptq.dequantize(jq)))
+    # the reference wrapper's per-row activation codes (ops.py:39-50)
+    absmax = jnp.max(jnp.abs(x), axis=1, keepdims=True)
+    jxs = jnp.maximum(absmax, 1e-8) / 127.0
+    jcodes = jnp.clip(jnp.round(x / jxs), -127, 127).astype(jnp.int8)
+    codes, xs = tops._quant_rows(t(x))
+    assert codes.dtype == torch.int8
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(jxs))
+    want = jops._pallas_mac_matmul_int8(x, jq)
+    got = tops._cuda_mac_matmul_int8(t(x), tq)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", grid("wkv_chunk"))
+def test_wkv_chunk_plain_matches_pallas_kernel(case):
+    args, chunk, tol = wkv_inputs(**case)
+    want, want_s = jwk.wkv_chunk(*args, chunk=chunk)
+    before = twk.wkv_chunk.launches
+    got, got_s = twk.wkv_chunk(*(t(a) for a in args), chunk=chunk)
+    assert twk.wkv_chunk.launches == before  # CPU: the plain version
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), **tol)
+
+
+@pytest.mark.parametrize("case", grid("wkv_chunk"))
+def test_wkv_chunk_wrapper_matches_pallas_wrapper(case):
+    args, chunk, tol = wkv_inputs(**case)
+    want, want_s = jops._pallas_wkv_chunk(*args, chunk)
+    got, got_s = tops._cuda_wkv_chunk(*(t(a) for a in args), chunk)
+    assert got.dtype == got_s.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), **tol)
+
+
+@pytest.mark.parametrize("case", grid("wkv_chunk"))
+def test_wkv_chunk_plain_matches_sequential_recurrence(case):
+    """The chunked plain version against the token-by-token oracle, on the
+    grid's S and on a ragged S zero-padded to whole chunks as ``time_mix``
+    pads it (the wrapper itself refuses a ragged S, as the reference)."""
+    args, chunk, tol = wkv_inputs(**case)
+    targs = [t(a) for a in args]
+    for s_len in (targs[0].shape[1], targs[0].shape[1] - 3):
+        cut = [a[:, :s_len] for a in targs[:4]] + targs[4:]
+        pad = (-s_len) % chunk
+        padded = [torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+                  for a in cut[:4]] + cut[4:]
+        if pad:
+            with pytest.raises(ValueError, match="multiple of chunk"):
+                twk.wkv_chunk(*cut, chunk=chunk)
+        got, got_s = twk.wkv_chunk(*padded, chunk=chunk)
+        want, want_s = tref.wkv_ref_sequential(*cut)
+        assert tuple(got.shape) == tuple(padded[0].shape)
+        np.testing.assert_allclose(got[:, :s_len].numpy(), want.numpy(),
+                                   **tol)
+        np.testing.assert_allclose(got_s.numpy(), want_s.numpy(), **tol)

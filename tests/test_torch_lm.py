@@ -280,7 +280,7 @@ def test_qwen3_logits_match_reference_at_the_same_level(qwen, level):
 def test_qwen3_bf16_logits_match_reference_at_v2(qwen_bf16):
     got, want = qwen_bf16.logits("v2")
     assert qwen_bf16.tprog("v2").resolved_extensions == {
-        "residual_rmsnorm": "cuda"}
+        "mac_matmul_int8": "cuda", "residual_rmsnorm": "cuda"}
     assert np.isfinite(got).all()
     assert rel_l2(got, want) <= BF16_LOGITS_REL
 
@@ -292,7 +292,7 @@ def test_qwen3_classifies_and_resolves_as_the_reference(qwen):
     assert dict(tp.profile.site_counts) == dict(jp.report.profile.site_counts)
     assert dict(tp.profile.site_bytes) == dict(jp.report.profile.site_bytes)
     ported = ("matmul_epilogue", "residual_rmsnorm", "flash_attention",
-              "sep_block")
+              "sep_block", "mac_matmul_int8", "wkv_chunk")
     for level in ("v0", "v1", "v2", "v3", "v4"):
         want = {p: "cuda" for p, impl in jresolve(
             level, "pallas", extensions=jp.report.recommended_extensions,
@@ -302,7 +302,8 @@ def test_qwen3_classifies_and_resolves_as_the_reference(qwen):
         assert dict(got) == want, level
     assert dict(tp.table) == {"residual_rmsnorm": "cuda",
                               "matmul_epilogue": "cuda", "sep_block": "cuda",
-                              "flash_attention": "cuda"}
+                              "flash_attention": "cuda", "wkv_chunk": "cuda",
+                              "mac_matmul_int8": "cuda"}
 
 
 def test_starcoder2_smoke_forward_matches_reference_at_v4():

@@ -27,7 +27,8 @@ from repro_torch.runtime.faults import FaultInjector  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORTED = ("fused_conv", "matmul_epilogue", "pool", "depthwise_conv",
-          "sep_block", "residual_rmsnorm", "flash_attention")
+          "sep_block", "residual_rmsnorm", "flash_attention",
+          "mac_matmul_int8", "wkv_chunk")
 
 
 def _lenet_program(**kw):
@@ -42,7 +43,8 @@ def test_compile_binds_cuda_table_and_serves_async_on_cpu():
     prog, in_shape = _lenet_program(backend="cuda")
     assert prog.model_class == "cnn"
     assert prog.extensions == ["mac", "conv_mac", "fusedmac"]
-    assert prog.resolved_extensions == {"fused_conv": "cuda",
+    assert prog.resolved_extensions == {"mac_matmul_int8": "cuda",
+                                        "fused_conv": "cuda",
                                         "matmul_epilogue": "cuda",
                                         "sep_block": "cuda"}
     engine = prog.serve(mode="async", max_batch=4)
@@ -112,14 +114,38 @@ def test_lm_launcher_serves_the_smoke_variant_on_cpu(capsys, monkeypatch):
 
 
 def test_arch_registry_serves_the_dense_family_only():
+    """The served archs (the dense family and rwkv6); an arch of a family
+    the port does not serve yet is refused with its family named."""
     from repro_torch.configs import get_arch, list_archs
 
-    assert list_archs() == ["granite-3-2b", "qwen3-8b", "starcoder2-3b"]
+    assert list_archs() == ["granite-3-2b", "qwen3-8b", "starcoder2-3b",
+                            "rwkv6-1.6b"]
     assert get_arch("qwen3-8b").family == "dense"
-    with pytest.raises(NotImplementedError, match="rwkv"):
-        get_arch("rwkv6-1.6b")
+    assert get_arch("rwkv6-1.6b").family == "rwkv"
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        get_arch("hymba-1.5b")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
+
+
+def test_lm_launcher_serves_rwkv_smoke_on_cpu(capsys):
+    m = tserve.main(["--arch", "rwkv6-1.6b", "--smoke", "--lm", "--requests",
+                     "6", "--max-new", "3", "--slots", "2", "--device",
+                     "cpu"])
+    assert m["completed"] == 6 and m["tokens_total"] == 18
+    assert m["kv_quant"] == "none" and m["errors"] == 0
+    assert m["kv_slot_reuses"] > 0
+    assert "0 new buckets after warmup" in capsys.readouterr().out
+
+
+def test_lm_launcher_refuses_int8_kv_for_rwkv():
+    """rwkv's recurrent state has no {'k','v'} layout: the reference's
+    message."""
+    with pytest.raises(ValueError, match=r"needs a \{'k','v'\} cache layout; "
+                       r"this family caches \['cm_prev', 's', 'tm_prev'\]"):
+        tserve.main(["--arch", "rwkv6-1.6b", "--smoke", "--lm", "--requests",
+                     "1", "--max-new", "1", "--slots", "1", "--kv-quant",
+                     "int8", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("level", ["v0", "v1", "v2", "v3", "v4"])

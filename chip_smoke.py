@@ -58,12 +58,21 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    to ``cuda``;
 6b. one recorded prefill forward at B = 4, S = 512: exactly 36
    flash_attention, 36 residual_rmsnorm and 216 matmul_epilogue launches,
-   every one held, each shape timed beside its bound and library call
-   (``F.scaled_dot_product_attention``, ``torch.matmul``; none for the
-   norm), and the forward's wall time beside its kernels' device time;
-6c. one recorded decode step at 8 slots: 0 / 36 / 216 launches (decode
-   attention is the plain path, as in the reference), every one held; its
-   wall time against its kernels' device time;
+   the GEMMs and attention all through their tensor-core ("wgmma") forms
+   (``FORWARD_FORMS``), every one held, each shape timed beside its bound,
+   its library call (``F.scaled_dot_product_attention``,
+   ``torch.matmul``; none for the norm) and the same launch in the
+   CUDA-core ("fma") form, and the forward's wall time beside its kernels'
+   device time; two planted tensor-core faults read against the unchanged
+   holds on every launch (``lm_fault_holds``): a GEMM whose f32
+   accumulator is rounded to bf16 after every 64-deep K tile must be
+   flagged on at least half, a flash kernel whose PV partial sums are
+   rounded to bf16 per key tile is read and printed;
+6c. one recorded decode step at 8 slots: 0 / 36 / 216 launches, the GEMMs
+   through the "decode" form (decode attention is the plain path, as in
+   the reference), every one held and timed beside the fma form; the
+   wrapper's host time per GEMM launch in the decode and fma forms; the
+   step's wall time against its kernels' device time;
 6d. 32 requests (``lm_prompts``, 16 new tokens each) served through
    ``prog.serve(mode="lm", kv_quant="int8", slots=8, max_len=64)`` with
    the counts from 0: 36 residual_rmsnorm and 216 matmul_epilogue launches
@@ -83,7 +92,8 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    wkv_chunk, matmul_epilogue and mac_matmul_int8 bound to ``cuda``, no
    residual_rmsnorm;
 8b. one recorded prefill forward at B = 4, S = 512 (8 chunks of 64):
-   exactly 24 wkv_chunk and 48 matmul_epilogue launches, every one held
+   exactly 24 wkv_chunk and 48 matmul_epilogue launches (the GEMMs in the
+   wgmma form, timed beside the fma form), every one held
    (``wkv_tol``: the error carried through the chunks from each column's
    own decay sum, beside the recurrence on |r|, |k|, |v|, |u|, |s0|), each
    shape timed beside its bound and library call (none for the
@@ -109,13 +119,18 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    under the v4 rnn_lm table, each equal to the plain int32 sum; each case
    timed beside ``torch._int_mm`` and the scale (its operands zero-padded
    to what ``_int_mm`` takes) and its bound;
-9. the ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` last line.
+9. the ``{"kernels": [...]}`` line (each kernel on the forward its entry
+   names; the GEMM's and flash attention's tensor-core forms on the LM
+   forwards under ``tensor_core_forms``) and the ``{"ok": true, ...}``
+   last line.
 
 Per-launch tolerances.  The GEMM-shaped holds (``matmul_epilogue``, the
 separable block's pointwise contraction, both products of flash attention)
 bound each output element by K * eps32 times the magnitude of its products
 (``gemm_tol``, ``flash_tol``: the plain products run on |a|, |b|), plus the
-epilogue's roundings and, for bf16 results, one rounding to bf16; the
+epilogue's roundings and, for bf16 results, one rounding to bf16 (the
+tensor-core GEMM forms' bf16 output is held against the plain version's
+f32 result, ``gemm_hold_tol``); the
 integer kernels agree within 1e-5 (exact int32 sums; mac_matmul_int8
 exactly), the pools exactly or within 1e-6, the norm within the bound of
 its mean of squares (``rmsnorm_case``), and the wkv recurrence within
@@ -291,27 +306,42 @@ def conv_case(args, timed=True):
             b)
 
 
+def gemm_hold_tol(x2, w, es, eb, r2, want, out_dtype):
+    """``gemm_tol`` of one launch; a bf16 result (the tensor-core forms)
+    adds its one rounding, 2**-8 of |want|: the hold compares it with the
+    plain version's f32 result, before that version's own rounding."""
+    tol = gemm_tol(x2.shape[1], abs_product(x2, w), want, es, eb, r2)
+    if str(out_dtype) == "torch.bfloat16":
+        tol = tol + UNIT_ROUNDOFF[str(out_dtype)] * want.abs()
+    return tol
+
+
 def gemm_case(args, timed=True):
-    """The GEMM kernel's f32 result against its plain version's (operands
-    f32 or bf16, read as they are by both), within ``gemm_tol``."""
+    """The GEMM kernel's result (f32 from the CUDA-core form, bf16 from the
+    tensor-core forms) against its plain version's f32 result (operands f32
+    or bf16, read as they are by both), within ``gemm_hold_tol``.  Timed:
+    the form the launch takes, with one slice of K, and for a tensor-core
+    form the CUDA-core form on the same operands (``fma_ms``)."""
     import torch
     from repro_torch.kernels import matmul_epilogue as me
 
     x2, w, es, eb, r2, act = args
+    form = me.launch_form(x2, w)
     got = me._launch(x2, w, es, eb, r2, act)
     want = me._plain(x2, w, es, eb, r2, act)
     m, k = x2.shape
     n = w.shape[1]
-    err, ratio = held(got, want, gemm_tol(k, abs_product(x2, w), want, es,
-                                          eb, r2))
-    assert ratio <= 1.0, ("matmul_epilogue", m, k, n, err, ratio)
+    err, ratio = held(got, want, gemm_hold_tol(x2, w, es, eb, r2, want,
+                                               got.dtype))
+    assert ratio <= 1.0, ("matmul_epilogue", form, m, k, n, err, ratio)
     kind = "bf16" if x2.dtype == torch.bfloat16 else "f32"
-    nbytes = (x2.element_size() * (m * k + k * n) + 4 * (2 * n + m * n)
+    nbytes = (x2.element_size() * (m * k + k * n) + 8 * n
+              + got.element_size() * m * n
               + (0 if r2 is None else r2.element_size() * m * n))
     b = bound(nbytes, {kind: 2 * m * n * k})
-    label = (f"matmul_epilogue {kind} M={m} K={k} N={n} {act}"
+    label = (f"matmul_epilogue {kind} {form} M={m} K={k} N={n} {act}"
              f"{' +res' if r2 is not None else ''}")
-    tol = f"|err| <= gemm_tol(K={k}), worst {ratio:.3f} of it"
+    tol = f"|err| <= gemm_hold_tol(K={k}), worst {ratio:.3f} of it"
     if not timed:
         return untimed(label, err, tol, b)
     launch = lambda: me._launch(x2, w, es, eb, r2, act)  # noqa: E731
@@ -319,8 +349,13 @@ def gemm_case(args, timed=True):
     ms1 = one_slice_ms(me, launch)
     plain = time_ms(lambda: me._plain(x2, w, es, eb, r2, act))
     lib = time_ms(lambda: torch.matmul(x2, w))
-    return (f"{label} (one K slice: {ms1:.4f} ms)", err, tol, ms, plain, lib,
-            b)
+    extra, note = {}, f"one K slice: {ms1:.4f} ms"
+    if form != "fma":
+        fma = time_ms(lambda: me._launch(x2, w, es, eb, r2, act, "fma"),
+                      reps=5)
+        extra = {"fma_ms": fma}
+        note += f"; fma form {fma:.4f} ms, {fma / ms:.1f}x the {form} form"
+    return f"{label} ({note})", err, tol, ms, plain, lib, b, extra
 
 
 def pool_case(args, timed=True):
@@ -534,12 +569,13 @@ def flash_case(args, timed=True):
     from repro_torch.kernels import flash_attention as fa
 
     q, k, v, causal = args
+    form = fa.launch_form(q, k, v)
     got = fa._launch(q, k, v, causal)
     want = fa.flash_attention_plain(q, k, v, causal=causal)
     err, ratio = held(got, want, flash_tol(q, k, v, causal, want))
     b_, sq, kh, g, d = q.shape
     skv = k.shape[1]
-    assert ratio <= 1.0, ("flash_attention", tuple(q.shape), err, ratio)
+    assert ratio <= 1.0, ("flash_attention", form, tuple(q.shape), err, ratio)
     # the work this run's mask leaves: query i meets min(i + 1, Skv) keys
     pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal
              else sq * skv)
@@ -547,8 +583,8 @@ def flash_case(args, timed=True):
     size = q.element_size()
     nbytes = size * (2 * q.numel() + 2 * k.numel())
     b = bound(nbytes, {kind: 4 * d * pairs * b_ * kh * g})
-    label = (f"flash_attention {kind} B={b_} Sq={sq} Skv={skv} K={kh} G={g} "
-             f"d={d} {'causal' if causal else 'full'}")
+    label = (f"flash_attention {kind} {form} B={b_} Sq={sq} Skv={skv} K={kh} "
+             f"G={g} d={d} {'causal' if causal else 'full'}")
     tol = f"|err| <= flash_tol, worst {ratio:.3f} of it"
     if not timed:
         return untimed(label, err, tol, b)
@@ -560,7 +596,12 @@ def flash_case(args, timed=True):
     kh_, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh_, vh, is_causal=causal, enable_gqa=True))
-    return label, err, tol, ms, plain, lib, b
+    extra = {}
+    if form != "fma":
+        fma = time_ms(lambda: fa._launch(q, k, v, causal, "fma"), reps=5)
+        extra = {"fma_ms": fma}
+        label += f" (fma form {fma:.4f} ms, {fma / ms:.1f}x the {form} form)"
+    return label, err, tol, ms, plain, lib, b, extra
 
 
 def wkv_tol(args, want, want_s):
@@ -749,6 +790,17 @@ PER_FORWARD = {
     "rwkv6-1.6b v4 decode": {},
 }
 
+# the form each launch of a kernel with forms takes, per forward: the LMs'
+# bf16 GEMMs and attention on tensor cores (wgmma; the GEMM's decode form
+# at 8 slots), every f32 launch of the CNNs on CUDA cores ("fma", where a
+# forward names none)
+FORWARD_FORMS = {
+    "qwen3-8b v4 prefill": {"matmul_epilogue": "wgmma",
+                            "flash_attention": "wgmma"},
+    "qwen3-8b v4 decode": {"matmul_epilogue": "decode"},
+    "rwkv6-1.6b v4 prefill": {"matmul_epilogue": "wgmma"},
+}
+
 
 def wrappers():
     from repro_torch.kernels import depthwise_conv as dw
@@ -774,16 +826,22 @@ def wrappers():
 
 @contextlib.contextmanager
 def counted():
-    """Every launch counter set to 0 on entry; yields the dict the counts
-    are read into on exit."""
+    """Every launch counter set to 0 on entry, the per-form counters of the
+    kernels with forms too; yields the dict the counts are read into on
+    exit, the forms' under ``"forms"``."""
     fns = wrappers()
     for fn in fns.values():
         fn.launches = 0
-    counts: dict[str, int] = {}
+        if hasattr(fn, "launches_by_form"):
+            fn.launches_by_form = dict.fromkeys(fn.launches_by_form, 0)
+    counts: dict = {}
     try:
         yield counts
     finally:
         counts.update({k: fn.launches for k, fn in fns.items()})
+        counts["forms"] = {k: dict(fn.launches_by_form)
+                           for k, fn in fns.items()
+                           if hasattr(fn, "launches_by_form")}
 
 
 def record_launches(prog, *x):
@@ -852,15 +910,17 @@ def hold(recorded, names, timed, extras=None):
                "library_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
                "per_forward": sum(c for c, _, _ in rows)}
         for cnt, args, later in rows:
-            label, err, tol, ms, plain, lib, (b_ms, by, tb, to) = case_fn(
-                args, timed)
+            label, err, tol, ms, plain, lib, (b_ms, by, tb, to), *more = (
+                case_fn(args, timed))
+            for key, t in (more[0] if more else {}).items():
+                agg[key] = agg.get(key, 0.0) + cnt * t
             times = ("" if ms is None else
                      f" ms={ms:.4f} plain_ms={plain:.4f} library_ms="
                      f"{'null' if lib is None else f'{lib:.4f}'}")
             log(f"  {label}: x{cnt}/forward max_abs_err={err:.3e} [{tol}]"
                 f"{times} bound_ms={b_ms:.5f} ({by})")
-            for more in later:  # the same shape's other launches, untimed
-                _, e, _, _, _, _, (_, _, tb2, to2) = case_fn(more, False)
+            for args2 in later:  # the same shape's other launches, untimed
+                _, e, _, _, _, _, (_, _, tb2, to2) = case_fn(args2, False)
                 err = max(err, e)
                 agg["t_bytes"] += tb2 - tb
                 agg["t_ops"] += to2 - to
@@ -885,6 +945,18 @@ def check_counts(label, counts, batches=1):
     for k in KERNELS:
         assert counts[k] == want.get(k, 0) * batches, (
             label, k, counts[k], want.get(k, 0), batches)
+    check_forms(label, counts["forms"], batches)
+
+
+def check_forms(label, forms, batches=1):
+    """Every launch of a kernel with forms took the form FORWARD_FORMS
+    names for this forward (the CUDA-core form where it names none)."""
+    want = PER_FORWARD[label]
+    for k, got in forms.items():
+        form = FORWARD_FORMS.get(label, {}).get(k, "fma")
+        expect = {f: want.get(k, 0) * batches if f == form else 0
+                  for f in got}
+        assert got == expect, (label, k, got, expect)
 
 
 def extra_cases(dev):
@@ -1252,11 +1324,125 @@ def lm_noise_and_faults(prog, tokens, want, limit):
     return got, rel, sites, bad
 
 
+def gemm_rounded_acc(x2, w, es, eb, r2, act, step=64):
+    """A wrong GEMM kernel: the plain version with its f32 accumulator
+    rounded to bf16 after every 64-deep K tile (as a kernel that kept its
+    sums in bf16 between the stages of its ring), its output in bf16."""
+    import torch
+    from repro_torch.kernels.ref import full_f32
+    from repro_torch.models.layers import ACTS
+
+    acc = torch.zeros((x2.shape[0], w.shape[1]), device=x2.device)
+    with full_f32():
+        for k0 in range(0, x2.shape[1], step):
+            acc = (acc + x2[:, k0:k0 + step].float()
+                   @ w[k0:k0 + step].float()).bfloat16().float()
+    y = acc * es + eb
+    if r2 is not None:
+        y = y + r2.float()
+    return ACTS[act](y).bfloat16()
+
+
+def flash_rounded_pv(q, k, v, causal, bk=64):
+    """A wrong flash kernel: the online softmax over the wgmma form's
+    64-key tiles with the PV accumulator rounded to bf16 after every key
+    tile (partial sums kept in bf16)."""
+    import math
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import NEG_INF, full_f32
+
+    qf, kf, vf = fa.to_bh(q, k, v)
+    bh, sq, d = qf.shape
+    skv = kf.shape[1]
+    m = torch.full((bh, sq, 1), NEG_INF, device=q.device)
+    l_ = torch.zeros((bh, sq, 1), device=q.device)
+    acc = torch.zeros((bh, sq, d), device=q.device)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    for t in range(0, skv, bk):
+        with full_f32():
+            sc = qf.float() @ kf[:, t:t + bk].float().transpose(1, 2)
+        sc = sc * (1.0 / math.sqrt(d))
+        if causal:
+            kpos = torch.arange(t, min(t + bk, skv), device=q.device)[None]
+            sc = torch.where(qpos >= kpos, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        corr = torch.exp(m - m_new)
+        l_ = l_ * corr + p.sum(-1, keepdim=True)
+        with full_f32():
+            acc = acc * corr + p.to(v.dtype).float() @ vf[:, t:t + bk].float()
+        acc = acc.bfloat16().float()
+        m = m_new
+    out = (acc / torch.clamp_min(l_, 1e-30)).to(q.dtype)
+    return fa.from_bh(out, q.shape)
+
+
+def lm_fault_holds(recorded) -> None:
+    """The unchanged per-launch holds against wrong tensor-core kernels,
+    over every recorded launch of the qwen3-8b prefill: the GEMM with its
+    accumulator rounded to bf16 per 64-deep K tile must be flagged on at
+    least half of them; the flash kernel with its PV partial sums rounded
+    to bf16 per key tile is read and printed (flash_tol allows two bf16
+    roundings of every probability and of the output, the same size as
+    this fault's; PERF.md)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import matmul_epilogue as me
+
+    def gemm_reading(args):
+        x2, w, es, eb, r2, act = args
+        want = me._plain(x2, w, es, eb, r2, act)
+        bad = gemm_rounded_acc(*args)
+        return held(bad, want, gemm_hold_tol(x2, w, es, eb, r2, want,
+                                             bad.dtype))[1]
+
+    def flash_reading(args):
+        q, k, v, causal = args
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        return held(flash_rounded_pv(*args), want,
+                    flash_tol(q, k, v, causal, want))[1]
+
+    faults = {"matmul_epilogue": ("its f32 accumulator rounded to bf16 "
+                                  "after every 64-deep K tile", gemm_reading),
+              "flash_attention": ("its PV partial sums rounded to bf16 per "
+                                  "key tile", flash_reading)}
+    flagged_of = {}
+    for name, (what, reading) in faults.items():
+        ratios = [reading(args) for _, first, later in recorded[name].values()
+                  for args in (first, *later)]
+        flagged = sum(x > 1.0 for x in ratios)
+        log(f"{LM_ARCH} prefill: planted fault '{name} with {what}': the "
+            f"unchanged per-launch hold flags {flagged} of {len(ratios)} "
+            f"launches (readings {min(ratios):.3f} to {max(ratios):.3f} "
+            f"times the bound)")
+        flagged_of[name] = (flagged, len(ratios))
+    flagged, n = flagged_of["matmul_epilogue"]
+    assert 2 * flagged >= n, "the GEMM hold misses a bf16 accumulator"
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Host time of one call of ``fn`` (microseconds), the device kept busy
+    by a sleep kernel so the calls only enqueue."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
 def lm_phases(dev, card):
     """6a-6e: qwen3-8b at full width and depth in bf16 on the card."""
     import numpy as np
     import torch
     from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.kernels import matmul_epilogue as me
     from repro_torch.launch.serve import lm_prompts
     from repro_torch.models import transformer as T
 
@@ -1291,6 +1477,7 @@ def lm_phases(dev, card):
     del logits
     prefill = hold(rec, ("flash_attention", "residual_rmsnorm",
                          "matmul_epilogue"), timed=True)
+    lm_fault_holds(rec)
     del rec
     torch.cuda.empty_cache()
     walls = []
@@ -1304,8 +1491,9 @@ def lm_phases(dev, card):
         f"{statistics.median(walls):.2f} ms wall (median of 3), of which its "
         f"kernels' device time " + ", ".join(
             f"{k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
-            f"{max(r['t_bytes'], r['t_ops']):.3f})"
-            for k, r in prefill.items()))
+            f"{max(r['t_bytes'], r['t_ops']):.3f}"
+            + (f", fma form {r['fma_ms']:.3f}" if "fma_ms" in r else "")
+            + ")" for k, r in prefill.items()))
 
     # 6c) one recorded decode step at LM_SLOTS slots, after a few steps of
     # history; decode attention takes the plain path (the reference's)
@@ -1323,6 +1511,15 @@ def lm_phases(dev, card):
         assert torch.isfinite(step_logits).all()
         log(f"{LM_ARCH} v4 decode step, {LM_SLOTS} slots: launches {counts}")
         dec = hold(rec, ("residual_rmsnorm", "matmul_epilogue"), timed=True)
+        x2, w, es, eb, r2, act = next(iter(rec["matmul_epilogue"].values()))[1]
+        host = {f: host_us(lambda f=f: me._launch(x2, w, es, eb, r2, act, f))
+                for f in ("decode", "fma")}
+        log(f"{LM_ARCH} v4 decode: host time of one GEMM launch through the "
+            f"wrapper at M={x2.shape[0]} K={x2.shape[1]} N={w.shape[1]}: "
+            f"decode form {host['decode']:.1f} us (two tensor maps encoded), "
+            f"fma form {host['fma']:.1f} us; "
+            f"{PER_FORWARD[f'{LM_ARCH} v4 decode']['matmul_epilogue']} "
+            f"launches a step")
         del rec
         walls = []
         for _ in range(5):
@@ -1336,6 +1533,7 @@ def lm_phases(dev, card):
         f"{statistics.median(walls):.2f} ms wall (median of 5), of which its "
         f"kernels' device time {dec_ms:.3f} ms (" + ", ".join(
             f"{k} {r['ms']:.3f}, bound {max(r['t_bytes'], r['t_ops']):.3f}"
+            + (f", fma form {r['fma_ms']:.3f}" if "fma_ms" in r else "")
             for k, r in dec.items()) + ") on " + card)
 
     # 6d) serve through the continuous-batching tier, int8 KV
@@ -1374,6 +1572,7 @@ def lm_phases(dev, card):
     want = PER_FORWARD[f"{LM_ARCH} v4 decode"]
     for k in KERNELS:
         assert launches[k] == want.get(k, 0) * steps, (k, launches, steps)
+    check_forms(f"{LM_ARCH} v4 decode", launches["forms"], steps)
     toks_out = sum(len(r.generated) for r in done)
     log(f"{LM_ARCH} v4 serve, int8 KV, {LM_SLOTS} slots, buckets "
         f"{engine.engine.manager.bucket_lens}: {N_REQUESTS} requests, "
@@ -1578,8 +1777,9 @@ def rwkv_phases(dev, card):
         f"{statistics.median(walls):.2f} ms wall (median of 3), of which its "
         f"kernels' device time " + ", ".join(
             f"{k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
-            f"{max(r['t_bytes'], r['t_ops']):.3f})"
-            for k, r in prefill.items()) + f" on {card}")
+            f"{max(r['t_bytes'], r['t_ops']):.3f}"
+            + (f", fma form {r['fma_ms']:.3f}" if "fma_ms" in r else "")
+            + ")" for k, r in prefill.items()) + f" on {card}")
 
     # 8c) one recorded decode step at LM_SLOTS slots: mac_matmul and plain
     # ops only, as in the reference, so no kernel launches
@@ -1881,7 +2081,7 @@ def main() -> int:
         + ")")
 
     # 6) the dense-LM path: qwen3-8b at full width
-    prefill, _, _, lm_launches = lm_phases(dev, card)
+    prefill, dec, _, lm_launches = lm_phases(dev, card)
     results.update({k: v for k, v in prefill.items()
                     if KERNELS[k][3] == f"{LM_ARCH} v4 prefill"})
 
@@ -1912,6 +2112,26 @@ def main() -> int:
     batches = {"qwen3-8b v4 prefill": "B=%d S=%d" % LM_PREFILL,
                f"{RWKV_ARCH} v4 prefill": "B=%d S=%d" % RWKV_PREFILL,
                "mac_matmul_int8 cases": "(M, K, N) in %s" % (MAC_CASES,)}
+    def form_entry(forward, agg, form):
+        return {"form": form, "forward": forward,
+                "launches": agg["per_forward"], "ms": agg["ms"],
+                "fma_ms": agg.get("fma_ms"), "plain_ms": agg["plain_ms"],
+                "bound_ms": max(agg["t_bytes"], agg["t_ops"]),
+                "library_ms": agg["library_ms"]}
+
+    # the tensor-core forms, on the forwards that run them
+    tensor_core = {
+        "matmul_epilogue": [
+            form_entry(f"{LM_ARCH} v4 prefill", prefill["matmul_epilogue"],
+                       "wgmma"),
+            form_entry(f"{LM_ARCH} v4 decode step, {LM_SLOTS} slots",
+                       dec["matmul_epilogue"], "decode"),
+            form_entry(f"{RWKV_ARCH} v4 prefill",
+                       rwkv_prefill["matmul_epilogue"], "wgmma")],
+        "flash_attention": [
+            form_entry(f"{LM_ARCH} v4 prefill", prefill["flash_attention"],
+                       "wgmma")],
+    }
     kernels = []
     for name, (_, source, replaces, forward) in KERNELS.items():
         agg = results[name]
@@ -1926,6 +2146,7 @@ def main() -> int:
             "library_ms": agg["library_ms"],
             "forward": f"{forward} {batches.get(forward, f'batch {BATCH}')}",
             "path": paths.get(name, "resnet50 v4 serve"),
+            "tensor_core_forms": tensor_core.get(name, []),
         })
     log("(kernel times are per forward, the one each entry names: the sum "
         "over its launches of each launch's median)")

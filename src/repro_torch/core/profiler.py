@@ -255,6 +255,32 @@ class PatternProfile:
     loop_iters: float = 0.0
 
 
+def site_shapes(fn: Callable, *patterns: str) -> list[tuple]:
+    """``(pattern, shape, dtype)`` of the first two tensor arguments of
+    every call ``fn()`` makes to the given dispatch patterns, once per
+    program site (a layer stack's body runs once), over fake tensors: the
+    shapes a model hands its kernels, with nothing computed.  ``fn`` makes
+    its own inputs and parameters (they are faked as they are made)."""
+    seen: list[tuple] = []
+    with _recording([]):
+        inner = dispatch.call
+
+        def shapes(pattern, baseline, *args, **kwargs):
+            if pattern in patterns:
+                seen.append((pattern, *((tuple(a.shape), a.dtype)
+                                        for a in args[:2])))
+            return inner(pattern, baseline, *args, **kwargs)
+
+        dispatch.call = shapes
+        try:
+            with FakeTensorMode(allow_non_fake_inputs=True), \
+                    dispatch.use_table(dispatch.EMPTY_TABLE):
+                fn()
+        finally:
+            dispatch.call = inner
+    return seen
+
+
 def profile_fn(fn: Callable, *args, **kwargs) -> PatternProfile:
     """Run ``fn`` on the baseline over fake tensors (nothing executes) and
     profile it.  Tensor and numpy arguments become fake tensors of the same

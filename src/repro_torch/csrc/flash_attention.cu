@@ -19,7 +19,7 @@
 // Bound on the H100: at qwen3-8b's prefill (d = 128, S = 512) the two
 // products do 4 * S^2/2 * d FLOPs per (b, head) against reading q, k, v and
 // writing out once, above the card's operations-per-byte line: operations.
-// Design (simple and right first; wgmma, TMA and bf16 tensor cores later):
+// CUDA-core design (the "fma" form, the first port of this kernel):
 // one 256-thread block per (64-query tile, b*K*G row).  The block stages its
 // Q tile and then each needed 64-key tile of K (transposed) and V in shared
 // memory as f32 (the conversion from bf16 is exact), computes the 64x64
@@ -30,10 +30,32 @@
 // tile.  Key tiles wholly above the diagonal are never loaded.  Rows of
 // shared memory are padded by one float so the column reads are free of
 // bank conflicts.
+//
+// That CUDA-core form ("fma") runs f32 attention (on tensor cores f32 would
+// become TF32, which the reference does not compute) and bf16 heads outside
+// {64, 128}.  bf16 at d = 64 or 128 takes the tensor-core form ("wgmma",
+// hopper.cuh), chosen by the wrapper's predicate
+// (kernels/flash_attention.py::flash_form): one 384-thread block per (128
+// queries, (b, kh, g) row), issued heaviest first (the last query tiles of
+// the causal triangle).  A producer thread loads the Q tile once by TMA
+// through a 4-D tensor map over q's (B, Sq, K*G, d) layout, and 64-key
+// tiles of K and V through a 2-stage ring from (B, Skv, K, d) in place
+// (d = 128 is two 64-wide boxes; tiles wholly above the diagonal are never
+// loaded; TMA zero-fills past Sq and Skv).  Two consumer warpgroups of 64
+// queries each compute S = Q K^T with wgmma.m64n64k16 (both operands
+// K-major) into f32 registers, mask by position with -1e30, run the online
+// softmax in registers (the running max and sum reduced across the 4 lanes
+// that share a row; the sum l from the unrounded p), round P to bf16 in
+// registers and feed it as the register A of wgmma.m64n{d}k16 against V as
+// an MN-major B, O accumulating in f32 registers.  The output is written in
+// bf16, o / max(l, 1e-30).  The rounding is the reference's: P in v's type
+// for the PV product, scores, sums and the rescale in f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -223,18 +245,246 @@ int dispatch_d(const void* q, const void* k, const void* v, void* out, Geom g,
   return launch<T, 128>(q, k, v, out, g, scale, causal, s);
 }
 
+// ---------------------------------------------------------------------------
+// the wgmma form: bf16, d in {64, 128}
+// ---------------------------------------------------------------------------
+
+namespace tc {
+constexpr int BQ = 128, BKV = 64, STAGES = 2, THREADS = 384;
+template <int D>
+__host__ __device__ constexpr int q_bytes() {
+  return BQ * D * 2;  // d / 64 boxes of 128 rows x 64
+}
+template <int D>
+__host__ __device__ constexpr int kv_bytes() {
+  return BKV * D * 2;  // d / 64 boxes of 64 keys x 64
+}
+template <int D>
+__host__ __device__ constexpr int smem() {
+  return 1024 + q_bytes<D>() + 2 * STAGES * kv_bytes<D>() +
+         (1 + 2 * STAGES) * 8;
+}
+}  // namespace tc
+
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   __nv_bfloat16* __restrict__ out, Geom g, float scale,
+                   int causal) {
+  using namespace hopper;
+  constexpr int QBOX = tc::BQ * 128, KVBOX = tc::BKV * 128;
+  constexpr int KV = tc::kv_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* Ks = Qs + tc::q_bytes<D>();  // [stage][d / 64 boxes]
+  uint8_t* Vs = Ks + tc::STAGES * KV;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + tc::STAGES * KV);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + tc::STAGES;
+
+  const int n_qt = (g.Sq + tc::BQ - 1) / tc::BQ;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * tc::BQ;  // heaviest first
+  const int row = blockIdx.x;  // (b, kh, g) flattened, g fastest
+  const int gi = row % g.G, kh = (row / g.G) % g.K, b = row / (g.G * g.K);
+  int n_kt = (g.Skv + tc::BKV - 1) / tc::BKV;
+  if (causal) n_kt = min(n_kt, (q0 + tc::BQ - 1) / tc::BKV + 1);
+  const int role = threadIdx.x / 128;  // 0: producer, 1, 2: consumers
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < tc::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp releases
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (role == 0) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, tc::q_bytes<D>());
+      for (int h = 0; h < D / 64; ++h)
+        tma_load(Qs + h * QBOX, &qmap, qbar, 64 * h, kh * g.G + gi, q0, b);
+      for (int t = 0; t < n_kt; ++t) {
+        const int s = t % tc::STAGES;
+        if (t >= tc::STAGES) mbar_wait(&empty[s], ((t / tc::STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * KV);
+        for (int h = 0; h < D / 64; ++h) {
+          tma_load(Ks + s * KV + h * KVBOX, &kmap, &full[s], 64 * h, kh,
+                   t * tc::BKV, b);
+          tma_load(Vs + s * KV + h * KVBOX, &vmap, &full[s], 64 * h, kh,
+                   t * tc::BKV, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int c = role - 1, warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32, quad = lane % 4;
+  const int r_base = q0 + 64 * c + 16 * warp + lane / 4;
+  float o[D / 2], m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  fence_regs(o);
+  mbar_wait(qbar, 0);
+
+  for (int t = 0; t < n_kt; ++t) {
+    const int s = t % tc::STAGES;
+    mbar_wait(&full[s], (t / tc::STAGES) & 1);
+    const uint8_t* kt = Ks + s * KV;
+    const uint8_t* vt = Vs + s * KV;
+
+    // S = Q K^T: 64 queries x 64 keys, f32
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int h = kk / 4, off = (kk % 4) * 32;
+      wgmma_m64n64k16_ss<0, 0>(
+          sc, kmajor_desc(Qs + h * QBOX + c * 64 * 128 + off),
+          kmajor_desc(kt + h * KVBOX + off));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // mask, online softmax; thread rows r_base and r_base + 8
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qpos = r_base + 8 * hh;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          const int kpos = t * tc::BKV + 8 * j + 2 * quad + e;
+          const bool ok = kpos < g.Skv && (!causal || qpos >= kpos);
+          sc[i] = ok ? __fmul_rn(sc[i], scale) : NEG_INF;
+          mx = fmaxf(mx, sc[i]);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[hh], mx);
+      const float corr = expf(m_run[hh] - m_new);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * hh + e;
+          sc[i] = expf(sc[i] - m_new);
+          rs += sc[i];
+        }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l_run[hh] = fmaf(l_run[hh], corr, rs);
+      m_run[hh] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * hh] *= corr;
+        o[4 * j + 2 * hh + 1] *= corr;
+      }
+    }
+
+    // P rounded to bf16 as the register A of P V (keys 16kk..16kk+15)
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = mnmajor_desc(vt + kk * 2048, KVBOX);
+      if constexpr (D == 128)
+        wgmma_m64n128k16_rs<1>(o, pa[kk], dv);
+      else
+        wgmma_m64n64k16_rs<1>(o, pa[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int sp = r_base + 8 * hh;
+    if (sp >= g.Sq) continue;
+    const float den = fmaxf(l_run[hh], 1e-30f);
+    __nv_bfloat16* orow =
+        out + (((size_t)b * g.Sq + sp) * g.K * g.G + (size_t)kh * g.G + gi) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * quad;
+      *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+          __fdiv_rn(o[4 * j + 2 * hh], den),
+          __fdiv_rn(o[4 * j + 2 * hh + 1], den));
+    }
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* out, Geom g,
+              float scale, int causal, cudaStream_t s) {
+  using hopper::bf16_map;
+  CUtensorMap qm, km, vm;
+  const cuuint64_t kg = (cuuint64_t)g.K * g.G, e = 2;
+  const cuuint64_t qdims[4] = {D, kg, (cuuint64_t)g.Sq, (cuuint64_t)g.B};
+  const cuuint64_t qstr[3] = {D * e, kg * D * e, (cuuint64_t)g.Sq * kg * D * e};
+  const cuuint32_t qbox[4] = {64, 1, tc::BQ, 1};
+  int err = bf16_map(&qm, q, 4, qdims, qstr, qbox);
+  if (err) return err;
+  const cuuint64_t kdims[4] = {D, (cuuint64_t)g.K, (cuuint64_t)g.Skv,
+                               (cuuint64_t)g.B};
+  const cuuint64_t kstr[3] = {D * e, (cuuint64_t)g.K * D * e,
+                              (cuuint64_t)g.Skv * g.K * D * e};
+  const cuuint32_t kbox[4] = {64, 1, tc::BKV, 1};
+  err = bf16_map(&km, k, 4, kdims, kstr, kbox);
+  if (err) return err;
+  err = bf16_map(&vm, v, 4, kdims, kstr, kbox);
+  if (err) return err;
+  auto kern = flash_wgmma_kernel<D>;
+  err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::smem<D>());
+  if (err) return err;
+  dim3 grid(g.B * g.K * g.G, (g.Sq + tc::BQ - 1) / tc::BQ);
+  kern<<<grid, tc::THREADS, tc::smem<D>(), s>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(out), g, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, out: (B, Sq, K, G, d); k, v: (B, Skv, K, d); one type for all four
-// (bf16 when is_bf16, else f32); 1 <= d <= 128; B*K*G <= 65535 rows.
+// (bf16 when is_bf16, else f32).  form 0 (fma): 1 <= d <= 128, B*K*G <=
+// 65535 rows; form 1 (wgmma): bf16, d = 64 or 128, Skv >= 1, 16-byte
+// aligned bases, Sq / 128 <= 65535 query tiles.
 extern "C" int marvel_flash_attention(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Skv, int K, int G, int d,
                                       float scale, int causal, int is_bf16,
-                                      void* stream) {
+                                      int form, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B == 0 || Sq == 0) return 0;
   Geom g{B, Sq, Skv, K, G, d};
+  if (form == 1) {
+    if (!is_bf16 || Skv < 1) return (int)cudaErrorInvalidValue;
+    if (d == 64) return launch_tc<64>(q, k, v, out, g, scale, causal, s);
+    if (d == 128) return launch_tc<128>(q, k, v, out, g, scale, causal, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (is_bf16)
     return dispatch_d<__nv_bfloat16>(q, k, v, out, g, scale, causal, s);
   return dispatch_d<float>(q, k, v, out, g, scale, causal, s);

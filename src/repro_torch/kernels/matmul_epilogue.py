@@ -7,11 +7,20 @@ and how its tiling answers that.  The whole epilogue folds into one
 per-column pair ``act(acc*es + eb [+ residual])`` with ``es = scale`` and
 ``eb = b*es + shift``, so the GEMM output is written to device memory once.
 Operands are f32 (the CNNs) or bf16 (the LMs): the kernel reads bf16 in
-place and sums in f32, so a bf16 weight is never copied to f32.
+place and sums in f32, so a bf16 weight is never copied or transposed.
+
+The kernel has three forms, chosen by :func:`gemm_form` from the operands'
+shapes, type and alignment alone (a plain predicate, no fallback):
+``"fma"`` (CUDA-core f32 FMA tiles: every f32 GEMM, and bf16 operands the
+tensor-core forms cannot take), ``"wgmma"`` (bf16 on tensor cores, TMA-fed,
+M > :data:`DECODE_M_MAX`) and ``"decode"`` (bf16, M <= DECODE_M_MAX, bound
+by reading w once).  The fma form writes f32, converted to x.dtype here;
+the tensor-core forms write bf16 themselves.
 
 :func:`matmul_epilogue` is the wrapper: CPU tensors run
 :func:`matmul_epilogue_plain`'s arithmetic, CUDA tensors launch the kernel
-(``matmul_epilogue.launches`` counts the launches).
+(``matmul_epilogue.launches`` counts the launches,
+``matmul_epilogue.launches_by_form`` them per form).
 """
 from __future__ import annotations
 
@@ -25,7 +34,60 @@ from repro_torch.kernels.ref import full_f32
 from repro_torch.models.layers import ACTS
 
 _INT32_MAX = 2**31 - 1
-BM, BN, BK = 64, 64, 16  # the kernel's tile (csrc/matmul_epilogue.cu)
+# each form's (rows, columns, K step) of one block's tile
+# (csrc/matmul_epilogue.cu); the decode form's rows are all M
+TILES = {"fma": (64, 64, 16), "wgmma": (128, 128, 64), "decode": (None, 64, 64)}
+FORMS = tuple(TILES)
+DECODE_M_MAX = 16  # the decode form's widest M (wgmma n16)
+WIDE_BN = 256  # the wgmma form's wide tile
+WIDE_K_MIN = 8192  # ... for K at least this long
+
+
+def wgmma_tile_n(m: int, k: int, n: int, sms: int) -> int:
+    """The wgmma form's tile width: 256 columns where K is long and the
+    128 x 256 tiles still number at least one per SM, else 128.  The wide
+    tile runs one block an SM, whose epilogue nothing overlaps: on the H100
+    it is faster only when the K loop is long (qwen3-8b's down projection,
+    K = 12288: 0.30 against 0.40 ms; at K = 4096 0.15 against 0.13 ms and
+    0.68 against 0.44 ms; PERF.md)."""
+    wide = (k >= WIDE_K_MIN
+            and -(-m // 128) * -(-n // WIDE_BN) >= sms)
+    return WIDE_BN if wide else 128
+
+
+def gemm_form(m: int, k: int, n: int, dtype, aligned: bool = True) -> str:
+    """The form a CUDA launch of an (M, K) @ (K, N) GEMM takes: bf16
+    operands with K and N multiples of 8 and 16-byte aligned bases (what TMA
+    reads) go to the tensor cores, as ``"decode"`` up to M = DECODE_M_MAX
+    rows and ``"wgmma"`` above; everything else, f32 above all (tensor
+    cores would compute it in TF32), to ``"fma"``."""
+    if dtype != torch.bfloat16 or k % 8 or n % 8 or not aligned:
+        return "fma"
+    return "decode" if m <= DECODE_M_MAX else "wgmma"
+
+
+def launch_form(x2, w) -> str:
+    """:func:`gemm_form` of the operands as :func:`_launch` will read them
+    (a non-contiguous operand is copied, and a fresh copy is aligned)."""
+    dt = x2.dtype if x2.dtype == w.dtype else torch.float32
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, w)
+                  if t.is_contiguous())
+    return gemm_form(x2.shape[0], x2.shape[1], w.shape[1], dt, aligned)
+
+
+def split_plan(form: str, m: int, n: int, k: int, sms: int):
+    """(slices of K, K per slice, tile width) of a launch: the form's output
+    tiles and K steps through :func:`~repro_torch.kernels.common.split_k`;
+    the slices cover K, each a whole number of K steps and none empty.  The
+    wgmma form splits only below half the SMs' worth of tiles: a wave it
+    fills half of still runs faster than the workspace's round trip."""
+    bm, bn, bk = TILES[form]
+    if form == "wgmma":
+        bn = wgmma_tile_n(m, k, n, sms)
+    tiles = -(-n // bn) * (1 if bm is None else -(-m // bm))
+    k_iters = -(-k // bk)
+    splits = split_k(tiles, k_iters, sms // 2 if form == "wgmma" else sms)
+    return splits, -(-k_iters // splits) * bk, bn
 
 
 def _prepare(x, w, b, scale, shift, residual):
@@ -51,15 +113,17 @@ def _plain(x2, w, es, eb, r2, act):
 _OPERAND_TYPES = (torch.float32, torch.bfloat16)
 
 
-def _launch(x2, w, es, eb, r2, act):
-    """The kernel on (M, K) @ (K, N) operands: read as they are when both are
-    f32 or both bf16, else taken to f32 first; the residual likewise; the
-    output is f32."""
+def _launch(x2, w, es, eb, r2, act, form=None):
+    """The kernel on (M, K) @ (K, N) operands, in ``form`` (default
+    :func:`launch_form`): read as they are when both are f32 or both bf16,
+    else taken to f32 first; the residual likewise; the output is f32 from
+    the fma form, bf16 from the tensor-core forms."""
     m, k = x2.shape
     n = w.shape[1]
     if max(m * n, m * k, k * n) > _INT32_MAX:
         raise ValueError(f"GEMM ({m}x{k}) @ ({k}x{n}) exceeds the kernel's "
                          f"32-bit indexing")
+    form = form or launch_form(x2, w)
     if x2.dtype != w.dtype or x2.dtype not in _OPERAND_TYPES:
         x2, w = x2.float(), w.float()
     if r2 is not None and r2.dtype not in _OPERAND_TYPES:
@@ -74,11 +138,16 @@ def _launch(x2, w, es, eb, r2, act):
     check_operand(eb, "eb", torch.float32, (n,))
     if r2 is not None:
         check_operand(r2, "residual", r2.dtype, (m, n))
-    out = torch.empty((m, n), dtype=torch.float32, device=x2.device)
-    k_iters = -(-k // BK)
-    splits = split_k(-(-m // BM) * -(-n // BN), k_iters,
-                     build.sm_count(x2.device))
-    per = -(-k_iters // splits) * BK
+    if form != "fma" and gemm_form(m, k, n, dt, x2.data_ptr() % 16 == 0
+                                   and w.data_ptr() % 16 == 0) != form:
+        raise ValueError(f"the {form} form cannot take ({m}x{k}) @ ({k}x{n}) "
+                         f"{dt} operands")
+    out = torch.empty((m, n), dtype=torch.float32 if form == "fma" else dt,
+                      device=x2.device)
+    splits, per, bn = split_plan(form, m, n, k, build.sm_count(x2.device))
+    # the kernel's form codes: FORMS' order, and 3 for the wgmma form's
+    # 128x256 tiles
+    code = 3 if form == "wgmma" and bn == WIDE_BN else FORMS.index(form)
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
           if splits > 1 else None)
     with torch.cuda.device(x2.device):
@@ -88,7 +157,7 @@ def _launch(x2, w, es, eb, r2, act):
             None if ws is None else ws.data_ptr(), m, n, k, splits, per,
             ACT_CODES[act], int(dt == torch.bfloat16),
             int(r2 is not None and r2.dtype == torch.bfloat16),
-            build.stream_ptr(x2.device))
+            code, build.stream_ptr(x2.device))
     build.check("matmul_epilogue", status)
     return out
 
@@ -114,7 +183,9 @@ def matmul_epilogue(x, w, b=None, act="none", scale=None, shift=None,
     else:
         y = _launch(x2, w, es, eb, r2, act)
         matmul_epilogue.launches += 1
+        matmul_epilogue.launches_by_form[launch_form(x2, w)] += 1
     return y.to(x.dtype).reshape(*x.shape[:-1], w.shape[1])
 
 
 matmul_epilogue.launches = 0
+matmul_epilogue.launches_by_form = dict.fromkeys(FORMS, 0)

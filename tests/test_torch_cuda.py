@@ -23,6 +23,15 @@ over the reduction K); in bf16 the outputs may differ by one bf16 rounding
 (2**-7 relative), and flash attention's probabilities too (2**-7 of
 ``mean|v|`` absolute), where the two sum orders straddle a rounding edge.
 
+The tensor-core forms: one wgmma tile per operand arrangement the kernels
+use (``hopper_selftest.cu``: K-major and MN-major A and B, register A) on
+random data against torch; the bf16 GEMM through its decode and wgmma
+forms at M in {1, 8, 16, 33, 64, 2047}, K in {64, 4096, 12288}, N in {8,
+1024, 2048, 4096}, every act and f32, bf16 or no residual, within the
+products' magnitude bound plus one bf16 rounding; the shapes that must
+take the CUDA-core form; bf16 flash attention at d in {64, 128}, G in {1,
+4}, S in {1, 63, 128, 512}, causal and full, through the wgmma form.
+
 The rnn_lm kernels: ``mac_matmul_int8`` on the grid's three cases, a
 skinny ragged one and rwkv6-1.6b's GEMM shapes, equal to its plain version
 (exact int32 sums); ``wkv_chunk`` on the grid's three cases, the smoke
@@ -351,9 +360,10 @@ def test_flash_attention_kernel_matches_plain(card, case):
                                   dict(m=256, k=512, n=384, act="gelu")],
                          ids=str)
 def test_matmul_epilogue_reads_bf16_operands_in_place(card, case):
-    """bf16 operands: the kernel's f32 result is bit for bit that of the
-    same values through its f32 path, within tol_from_acc of the plain
-    version, and the wrapper's bf16 output within one bf16 rounding."""
+    """bf16 operands: the CUDA-core form's f32 result is bit for bit that of
+    the same values through its f32 path, within tol_from_acc of the plain
+    version; the form the wrapper routes them to writes bf16 within one
+    bf16 rounding of the plain version."""
     from repro_torch.kernels import matmul_epilogue as me
 
     c = dict(seed=0, act="none", residual=False) | case
@@ -367,7 +377,7 @@ def test_matmul_epilogue_reads_bf16_operands_in_place(card, case):
            if c["residual"] else None)
     es = torch.ones(n, device=card)
     eb = torch.zeros(n, device=card)
-    got = me._launch(x, w, es, eb, res, c["act"])
+    got = me._launch(x, w, es, eb, res, c["act"], "fma")
     f32_path = me._launch(x.float(), w.float(), es, eb,
                           None if res is None else res.float(), c["act"])
     torch.cuda.synchronize()
@@ -382,6 +392,167 @@ def test_matmul_epilogue_reads_bf16_operands_in_place(card, case):
         out.float(), me.matmul_epilogue_plain(x, w, act=c["act"],
                                               residual=res).float(),
         rtol=2**-7, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core forms (csrc/hopper.cuh)
+# ---------------------------------------------------------------------------
+
+# mode: (N, A stored as, B stored as), as csrc/hopper_selftest.cu lists them
+WGMMA_MODES = {0: (128, "mk", "kn"), 1: (128, "mk", "kn"),
+               2: (64, "mk", "nk"), 3: (8, "km", "nk"), 4: (16, "km", "nk"),
+               5: (64, "mk", "kn")}
+
+
+@pytest.mark.parametrize("mode", sorted(WGMMA_MODES))
+def test_wgmma_tile_descriptors(card, mode):
+    """One 64 x N x 64 wgmma tile, loaded by TMA with 128-byte swizzle,
+    on random non-symmetric data against torch on the same bf16 values:
+    K-major and MN-major (transposed) A and B in shared memory, and A from
+    registers (modes 1 and 5).  A wrong LBO / SBO, swizzle base, transpose
+    immediate or fragment map gives wrong numbers here.  Products of bf16
+    are exact in f32, so only the order of 64 f32 sums differs."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ref import full_f32
+
+    n, a_as, b_as = WGMMA_MODES[mode]
+    r = _rng(mode)
+    bf = torch.bfloat16
+    a = torch.from_numpy(r.standard_normal((64, 64), np.float32)).to(card, bf)
+    b = torch.from_numpy(r.standard_normal(
+        (64, n) if b_as == "kn" else (n, 64), np.float32)).to(card, bf)
+    out = torch.empty((64, n), device=card)
+    with torch.cuda.device(card):
+        status = build.lib().marvel_wgmma_selftest(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), mode,
+            build.stream_ptr(card))
+    build.check("wgmma_selftest", status)
+    torch.cuda.synchronize()
+    av = a.float() if a_as == "mk" else a.float().T
+    bv = b.float() if b_as == "kn" else b.float().T
+    with full_f32():
+        want = av @ bv
+    torch.testing.assert_close(out, want, **_tol32(64))
+
+
+def _gemm_case_tol(x, w, want, es, eb, res):
+    """Two f32 evaluations of the epilogued GEMM in other sum orders (K eps
+    times the products' magnitude, the epilogue's roundings, a few ulp of
+    the act), plus the one rounding of the result to bf16."""
+    from repro_torch.kernels.ref import full_f32
+
+    eps = float(np.finfo(np.float32).eps)
+    with full_f32():
+        mag = x.float().abs() @ w.float().abs()
+    extra = eb.abs() + (0 if res is None else res.float().abs())
+    k = x.shape[1]
+    return (1.2 * eps * ((k + 2) * mag * es.abs() + 2 * extra)
+            + (4 * eps + 2.0**-8) * want.abs())
+
+
+_GEMM_ACTS = ("none", "relu", "relu6", "silu", "gelu")
+TC_GEMM_CASES = [dict(m=m, k=k, n=n) for m in (1, 8, 16, 33, 64, 2047)
+                 for k in (64, 4096, 12288) for n in (8, 1024, 2048, 4096)]
+
+
+@pytest.mark.parametrize("i", range(len(TC_GEMM_CASES)))
+def test_matmul_epilogue_tensor_core_forms(card, i):
+    """bf16 GEMMs of every (M, K, N) of the grid through the wrapper: the
+    form each launch takes (decode up to M = 16, wgmma above), the bf16
+    output within :func:`_gemm_case_tol` of the plain f32 version; the acts
+    and an f32, bf16 or no residual cycle over the cases."""
+    from repro_torch.kernels import matmul_epilogue as me
+
+    c = TC_GEMM_CASES[i]
+    m, k, n = c["m"], c["k"], c["n"]
+    act = _GEMM_ACTS[i % 5]
+    res_kind = (None, "f32", "bf16")[i % 3]
+    r = _rng(i)
+    bf = torch.bfloat16
+    x = torch.from_numpy(r.standard_normal((m, k), np.float32)).to(card, bf)
+    w = torch.from_numpy(r.standard_normal((k, n), np.float32)
+                         / np.sqrt(k)).to(card, bf)
+    b = torch.from_numpy(r.standard_normal(n, np.float32) * 0.1).to(card)
+    s = torch.from_numpy(0.5 + r.random(n, np.float32)).to(card)
+    res = (None if res_kind is None else torch.from_numpy(
+        r.standard_normal((m, n), np.float32)).to(
+            card, bf if res_kind == "bf16" else torch.float32))
+    form = "decode" if m <= me.DECODE_M_MAX else "wgmma"
+    before = dict(me.matmul_epilogue.launches_by_form)
+    got = me.matmul_epilogue(x, w, b, act=act, scale=s, residual=res)
+    torch.cuda.synchronize()
+    assert me.matmul_epilogue.launches_by_form[form] == before[form] + 1
+    assert got.dtype == bf and got.shape == (m, n)
+    x2, es, eb, r2 = me._prepare(x, w, b, s, None, res)
+    want = me._plain(x2, w, es, eb, r2, act)
+    err = (got.float() - want).abs()
+    tol = _gemm_case_tol(x2, w, want, es, eb, r2)
+    assert (err <= tol).all(), (err / tol).max().item()
+
+
+def test_matmul_epilogue_routes_what_tensor_cores_cannot_take(card):
+    """K or N not a multiple of 8, a base not 16-byte aligned, and f32
+    operands take the CUDA-core form, which the counters show."""
+    from repro_torch.kernels import matmul_epilogue as me
+
+    r = _rng(0)
+    bf = torch.bfloat16
+
+    def run(x, w):
+        before = dict(me.matmul_epilogue.launches_by_form)
+        got = me.matmul_epilogue(x, w, act="relu")
+        torch.cuda.synchronize()
+        after = me.matmul_epilogue.launches_by_form
+        took = [f for f in me.FORMS if after[f] == before[f] + 1]
+        torch.testing.assert_close(
+            got.float(), me.matmul_epilogue_plain(x, w, act="relu").float(),
+            rtol=2**-7, atol=1e-5)
+        return took
+
+    def mat(shape, dt=bf):
+        return torch.from_numpy(r.standard_normal(shape, np.float32)).to(
+            card, dt)
+
+    assert run(mat((64, 257)), mat((257, 128))) == ["fma"]  # K % 8
+    assert run(mat((8, 256)), mat((256, 130))) == ["fma"]  # N % 8
+    buf = mat((64 * 256 + 1,))
+    x = buf[1:].view(64, 256)  # contiguous, 2 bytes past an aligned base
+    assert x.data_ptr() % 16 != 0
+    assert run(x, mat((256, 128))) == ["fma"]
+    f32 = torch.float32
+    assert run(mat((64, 256), f32), mat((256, 128), f32)) == ["fma"]
+    assert run(mat((64, 256)), mat((256, 128))) == ["wgmma"]
+    assert run(mat((8, 256)), mat((256, 128))) == ["decode"]
+
+
+TC_FLASH_CASES = [dict(s=s, g=g, d=d, causal=causal)
+                  for s in (1, 63, 128, 512) for g in (1, 4) for d in (64, 128)
+                  for causal in (True, False)]
+
+
+@pytest.mark.parametrize("case", TC_FLASH_CASES, ids=str)
+def test_flash_attention_wgmma_form(card, case):
+    """bf16 heads of 64 and 128 take the wgmma form; within one bf16
+    rounding of the output and of the probabilities (2**-7 of mean |v|)
+    of the plain version, as the bf16 cases above."""
+    from repro_torch.kernels import flash_attention as fa
+
+    s, g, d = case["s"], case["g"], case["d"]
+    r = _rng(s + g + d)
+    bf = torch.bfloat16
+    q = torch.from_numpy(r.standard_normal((2, s, 2, g, d), np.float32))
+    k, v = (torch.from_numpy(r.standard_normal((2, s, 2, d), np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(card, bf) for t in (q, k, v))
+    before = fa.flash_attention.launches_by_form["wgmma"]
+    got = fa.flash_attention(q, k, v, causal=case["causal"])
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_by_form["wgmma"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=case["causal"])
+    assert got.shape == want.shape and got.dtype == bf
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=2**-7,
+        atol=2**-7 * v.float().abs().mean().item())
 
 
 MAC_CASES = [

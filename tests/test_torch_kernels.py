@@ -16,7 +16,13 @@ near 0, where the order of an f32 sum over H*W moves the result by a few
 1e-8 absolute; mac_matmul_int8 equal (exact int32 sums, the same f32
 scale products); wkv_chunk the reference conformance runner's
 ``tol_from_acc(float32, S, slack=8)``.
+
+The GEMM kernel's form predicate and split-K plan are checked on every GEMM
+site of the six CNNs and four LMs at full width (recorded over fake
+tensors): the CNNs' f32 GEMMs on CUDA cores, every plan covering K.
 """
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -260,6 +266,85 @@ def test_split_k_covers_k_with_no_empty_slice(tiles, k_iters):
         assert s == 1
     elif s > 1:
         assert per >= 4 and tiles * s <= 2 * 132 + tiles
+
+
+CNNS = ("lenet5", "mobilenetv1", "vgg16", "resnet50", "mobilenetv2",
+        "densenet121")
+LMS = ("qwen3-8b", "granite-3-2b", "starcoder2-3b", "rwkv6-1.6b")
+# the GEMM rows the serving tiers batch: CNN batches of 1..8 images (times
+# the spatial rows of a 1x1 conv); LM decode steps at 1..16 slots, the serve's
+# prefill buckets of 32 and 64 positions and the B = 4, S = 512 prefill
+LM_ROWS = (1, 8, 16, 32, 64, 2048)
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_sites(model):
+    """(rows per image or token, K, N, dtype) of every matmul_epilogue site
+    of a full-width model, recorded over fake tensors."""
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.core import profiler
+    from repro_torch.models import transformer as T
+    from repro_torch.models.cnn import get_cnn
+
+    gen = torch.Generator().manual_seed(0)
+    if model in CNNS:
+        init, apply, in_shape = get_cnn(model)
+        fn = lambda: apply(init(gen), torch.zeros((1, *in_shape)))  # noqa: E731
+    else:
+        cfg = get_arch(model)
+        run = RunConfig(seq_len=8, global_batch=1, mode="prefill")
+        fn = lambda: T.forward_lm(T.init_params(gen, cfg),  # noqa: E731
+                                  torch.zeros((1, 8), dtype=torch.int32),
+                                  cfg, run)
+    sites = profiler.site_shapes(fn, "matmul_epilogue")
+    assert sites
+    out = []
+    for _, (xs, xdt), (ws, wdt) in sites:
+        assert xdt == wdt
+        rows = int(np.prod(xs[:-1])) // (1 if model in CNNS else 8)
+        out.append((rows, ws[0], ws[1], xdt))
+    return out
+
+
+@pytest.mark.parametrize("model", CNNS)
+def test_cnn_gemms_take_the_cuda_core_form(model):
+    """Every GEMM of the six CNNs is f32 and takes the CUDA-core form at
+    every batch the serving tier runs: on tensor cores f32 would become
+    TF32, which the reference does not compute."""
+    for rows, k, n, dt in _gemm_sites(model):
+        assert dt == torch.float32
+        for batch in range(1, 9):
+            assert tme.gemm_form(rows * batch, k, n, dt) == "fma"
+
+
+@pytest.mark.parametrize("model", CNNS + LMS)
+def test_gemm_split_plans_cover_k(model):
+    """The split-K plan of every GEMM of the ten models, in the form the
+    wrapper routes it to, at every row count it runs at: whole K steps of
+    the form, slices that cover K with none empty, one slice once the
+    tiles fill the 132 SMs."""
+    for rows, k, n, dt in _gemm_sites(model):
+        for m in ([rows * b for b in range(1, 9)] if model in CNNS
+                  else LM_ROWS):
+            form = tme.gemm_form(m, k, n, dt)
+            bm, _, bk = tme.TILES[form]
+            splits, per, bn = tme.split_plan(form, m, n, k, 132)
+            assert per % bk == 0 and splits * per >= k
+            assert (splits - 1) * per < k, (model, form, m, k, n)
+            tiles = -(-n // bn) * (1 if bm is None else -(-m // bm))
+            assert splits == 1 or tiles < 132
+
+
+def test_gemm_form_predicate():
+    """bf16 with K and N multiples of 8 and aligned bases: decode up to 16
+    rows, wgmma above; anything else the CUDA-core form."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert tme.gemm_form(16, 4096, 1024, bf) == "decode"
+    assert tme.gemm_form(17, 4096, 1024, bf) == "wgmma"
+    assert tme.gemm_form(2048, 4096, 1024, f32) == "fma"
+    assert tme.gemm_form(2048, 4100, 1024, bf) == "fma"
+    assert tme.gemm_form(2048, 4096, 1020, bf) == "fma"
+    assert tme.gemm_form(8, 4096, 1024, bf, aligned=False) == "fma"
 
 
 def test_kernel_wrappers_refuse_tensors_off_cpu_and_cuda():

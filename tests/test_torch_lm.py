@@ -14,6 +14,8 @@ level, its classification, tables and site counts, and the continuous-
 batching engine's greedy streams against the reference engine's (f32
 params, so bf16 ties cannot decide an argmax), with and without int8 KV.
 One starcoder2-3b smoke forward covers the non-gated GELU MLP with biases.
+The GEMM and attention sites of the four LMs at full width (recorded over
+fake tensors) take the tensor-core forms of their kernels.
 
 Tolerances: ``tol_from_acc`` of the compared dtype and reduction length, as
 the reference's conformance runner states them (flash attention with its
@@ -57,6 +59,39 @@ from repro_torch.runtime.kvcache import SequenceTooLong  # noqa: E402
 BF16_LOGITS_REL = 2.0**-6
 RUN = dict(seq_len=32, global_batch=4, mode="decode", attn_chunk=16)
 
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-2b", "starcoder2-3b",
+                                  "rwkv6-1.6b"])
+def test_lm_kernels_take_the_tensor_core_forms(arch):
+    """Every GEMM and attention site of the four LMs at full width
+    (recorded over fake tensors) is bf16 in shapes the tensor-core forms
+    take: the GEMM's decode form at the decode step's 1..16 slots, its
+    wgmma form at the serve's prefill buckets and the B = 4, S = 512
+    prefill; flash attention's wgmma form (heads of 64 or 128)."""
+    from repro_torch.core import profiler
+    from repro_torch.kernels import matmul_epilogue as tme
+
+    cfg = get_arch(arch)
+    run = RunConfig(seq_len=8, global_batch=1, mode="prefill")
+    gen = torch.Generator().manual_seed(0)
+    sites = profiler.site_shapes(
+        lambda: T.forward_lm(T.init_params(gen, cfg),
+                             torch.zeros((1, 8), dtype=torch.int32), cfg, run),
+        "matmul_epilogue", "flash_attention")
+    gemms = [(w, dt) for p, (_, dt), (w, _) in sites if p == "matmul_epilogue"]
+    heads = [(q, k, dt) for p, (q, dt), (k, _) in sites
+             if p == "flash_attention"]
+    assert gemms and len(heads) == (0 if cfg.family == "rwkv" else 1)
+    for (k, n), dt in gemms:
+        assert dt == torch.bfloat16
+        for m in (1, 8, 16):
+            assert tme.gemm_form(m, k, n, dt) == "decode", (m, k, n)
+        for m in (32, 64, 2048):
+            assert tme.gemm_form(m, k, n, dt) == "wgmma", (m, k, n)
+    for q, k, dt in heads:
+        assert dt == torch.bfloat16 and q[-1] == cfg.d_head
+        assert tfa.flash_form(q[-1], 512, dt) == "wgmma"
 
 def t(a, dtype=None):
     """A JAX/numpy array as a CPU tensor (bf16 carried bit for bit)."""

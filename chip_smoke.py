@@ -25,9 +25,13 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    left warm) beside the one PyTorch call that computes the core op
    (``library_ms``, a yardstick the port never calls) and the bound (max
    of bytes / 3.35 TB/s and operations / the peak rate of their type);
+   the f32 GEMM with its operands rounded to TF32 (planted) must be
+   flagged by the unchanged per-launch hold on at least half of the 34
+   GEMM launches;
 3b. the same recorded batch-8 forward for MobileNetV2 at v4 (every kernel
    timed), MobileNetV2 at v2 (the standalone depthwise kernel timed),
-   MobileNetV1 at v4 and DenseNet121 at v4 (its pools timed).  Each
+   MobileNetV1 at v4 and DenseNet121 at v4 (its pools and its 62 GEMM
+   launches timed; each forward's GEMM total is printed).  Each
    forward runs with every launch counter set to 0 just before and read
    just after, and must launch each kernel as often as the reference
    dispatches it.  The per-launch tolerance must flag more separable-block
@@ -67,7 +71,12 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    holds on every launch (``lm_fault_holds``): a GEMM whose f32
    accumulator is rounded to bf16 after every 64-deep K tile must be
    flagged on at least half, a flash kernel whose PV partial sums are
-   rounded to bf16 per key tile is read and printed;
+   rounded to bf16 per key tile is read and printed; then every flash
+   launch is read over the launch (``flash_launch_reading``: the RMS of its
+   difference from the honest kernel's rounding schedule, per element in
+   units of what that schedule leaves to chance, limit 1): the kernel must
+   read at most 1 on every launch and the PV-rounding kernel above 1 on at
+   least half;
 6c. one recorded decode step at 8 slots: 0 / 36 / 216 launches, the GEMMs
    through the "decode" form (decode attention is the plain path, as in
    the reference), every one held and timed beside the fma form; the
@@ -1135,6 +1144,37 @@ def tf32_fault_holds(label, recorded) -> None:
     assert flagged > 2, "the per-launch holds miss a TF32 contraction"
 
 
+def gemm_tf32_launch(x2, w, es, eb, r2, act):
+    """A wrong f32 GEMM: the plain version on operands rounded to TF32 (f32
+    sums), as tensor cores would run it."""
+    from repro_torch.kernels import matmul_epilogue as me
+
+    return me._plain(tf32_round(x2.float()), tf32_round(w.float()), es, eb,
+                     r2, act)
+
+
+def gemm_tf32_fault_holds(label, recorded) -> None:
+    """The per-launch holds' power against a TF32 f32 GEMM: how many of the
+    forward's recorded GEMM launches the unchanged ``gemm_hold_tol`` flags
+    when the operands are rounded to TF32; at least half must be."""
+    import torch
+    from repro_torch.kernels import matmul_epilogue as me
+
+    flagged = total = 0
+    for _, first, later in recorded["matmul_epilogue"].values():
+        for args in (first, *later):
+            x2, w, es, eb, r2, act = args
+            want = me._plain(x2, w, es, eb, r2, act)
+            _, ratio = held(gemm_tf32_launch(*args), want,
+                            gemm_hold_tol(x2, w, es, eb, r2, want,
+                                          torch.float32))
+            flagged += ratio > 1.0
+            total += 1
+    log(f"{label}: planted fault 'matmul_epilogue on TF32 operands': the "
+        f"per-launch tolerance flags {flagged} of {total} launches")
+    assert 2 * flagged >= total, "the GEMM holds miss TF32 operands"
+
+
 def e2e_check(label, prog, apply, params_cpu, batch):
     """The card program's batch logits against the same program on the CPU
     (plain versions), beside the card's own response to 1e-7 noise; for
@@ -1343,16 +1383,24 @@ def gemm_rounded_acc(x2, w, es, eb, r2, act, step=64):
     return ACTS[act](y).bfloat16()
 
 
-def flash_rounded_pv(q, k, v, causal, bk=64):
-    """A wrong flash kernel: the online softmax over the wgmma form's
-    64-key tiles with the PV accumulator rounded to bf16 after every key
-    tile (partial sums kept in bf16)."""
+def flash_tile_model(q, k, v, causal, round_pv=False, dot=None, bk=64):
+    """The honest wgmma flash kernel's rounding schedule in plain PyTorch:
+    the online softmax over 64-key tiles, each tile's probabilities rounded
+    to v's type at the running max (the kernel's P operand), the sum l of
+    the unrounded ones, the PV sums in f32 rescaled by each tile's
+    correction, the output rounded to q's type.  ``round_pv``: a wrong
+    kernel, its PV partial sums rounded to bf16 after every key tile (kept
+    in bf16).  ``dot``: the f32 product (default the full-f32 matmul)."""
     import math
 
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import NEG_INF, full_f32
 
+    if dot is None:
+        def dot(a, b):
+            with full_f32():
+                return a.float() @ b.float()
     qf, kf, vf = fa.to_bh(q, k, v)
     bh, sq, d = qf.shape
     skv = kf.shape[1]
@@ -1361,9 +1409,7 @@ def flash_rounded_pv(q, k, v, causal, bk=64):
     acc = torch.zeros((bh, sq, d), device=q.device)
     qpos = torch.arange(sq, device=q.device)[:, None]
     for t in range(0, skv, bk):
-        with full_f32():
-            sc = qf.float() @ kf[:, t:t + bk].float().transpose(1, 2)
-        sc = sc * (1.0 / math.sqrt(d))
+        sc = dot(qf, kf[:, t:t + bk].transpose(1, 2)) * (1.0 / math.sqrt(d))
         if causal:
             kpos = torch.arange(t, min(t + bk, skv), device=q.device)[None]
             sc = torch.where(qpos >= kpos, sc, NEG_INF)
@@ -1371,12 +1417,70 @@ def flash_rounded_pv(q, k, v, causal, bk=64):
         p = torch.exp(sc - m_new)
         corr = torch.exp(m - m_new)
         l_ = l_ * corr + p.sum(-1, keepdim=True)
-        with full_f32():
-            acc = acc * corr + p.to(v.dtype).float() @ vf[:, t:t + bk].float()
-        acc = acc.bfloat16().float()
+        acc = acc * corr + dot(p.to(v.dtype), vf[:, t:t + bk])
+        if round_pv:
+            acc = acc.bfloat16().float()
         m = m_new
     out = (acc / torch.clamp_min(l_, 1e-30)).to(q.dtype)
     return fa.from_bh(out, q.shape)
+
+
+def flash_rounded_pv(q, k, v, causal):
+    """A wrong flash kernel: PV partial sums rounded to bf16 per key tile."""
+    return flash_tile_model(q, k, v, causal, round_pv=True)
+
+
+def flash_launch_reading(q, k, v, causal, got, bk=64) -> float:
+    """A launch-level reading of a flash kernel's result: the RMS over the
+    launch of (got - model) / sigma, where model is the honest kernel's
+    rounding schedule (``flash_tile_model``: P rounded to bf16 at the
+    running max of each key tile) and sigma, per element, the RMS of what
+    that schedule leaves to chance.  The f32 sums in another order: each
+    score within 2 sqrt(d/12) eps |q|.|k| scale (RMS of d roundings, two
+    evaluations; the row's largest), the PV sums within 2 sqrt(Skv/12) eps,
+    the per-tile rescales and the division a few eps, all of A = sum_k p_k
+    |v_k| / l; the score noise flips a probability's bf16 rounding with
+    chance delta / u, by at most 2u p, so 4 u delta sum_k p_k^2 v_k^2 / l^2;
+    with Delta the sum of the two, the output's rounding to bf16 differs
+    with chance |Delta| / ulp by one ulp: sigma^2 = Delta ulp + Delta^2.
+    An honest kernel reads at most 1 (the limit); a kernel that rounds
+    where the schedule does not reads above it wherever that rounding is
+    larger than the f32 noise."""
+    import math
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import NEG_INF, full_f32
+
+    model = flash_tile_model(q, k, v, causal, bk=bk)
+    qf, kf, vf = fa.to_bh(q, k, v)
+    sq, skv, d = qf.shape[1], kf.shape[1], qf.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    with full_f32():
+        s = qf.float() @ kf.float().transpose(1, 2) * scale
+        mag = qf.float().abs() @ kf.float().abs().transpose(1, 2) * scale
+    if causal:
+        keep = (torch.arange(sq, device=q.device)[:, None]
+                >= torch.arange(skv, device=q.device)[None, :])
+        s = torch.where(keep, s, NEG_INF)
+        mag = torch.where(keep, mag, 0.0)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    den = p.sum(-1, keepdim=True)
+    with full_f32():
+        a = p @ vf.float().abs() / den
+        p2v2 = p.square() @ vf.float().square() / den.square()
+    delta = 2 * math.sqrt(d / 12) * F32_EPS * mag.amax(-1, keepdim=True)
+    del s, mag, p
+    u = UNIT_ROUNDOFF[str(v.dtype)]
+    n_tiles = -(-skv // bk)
+    f32 = (delta + (2 * math.sqrt(skv / 12) + n_tiles + 4) * F32_EPS) * a
+    dlt = fa.from_bh(f32 + (4 * u * delta * p2v2).sqrt(), q.shape)
+    _, e = torch.frexp(model.float().abs().clamp_min(1e-30))
+    ulp = torch.ldexp(torch.ones_like(dlt), e - 8 if q.dtype == torch.bfloat16
+                      else e - 24)
+    sigma2 = dlt * ulp + dlt.square() + 1e-45
+    err2 = (got.float() - model.float()).square()
+    return (err2 / sigma2).mean().sqrt().item()
 
 
 def lm_fault_holds(recorded) -> None:
@@ -1386,7 +1490,9 @@ def lm_fault_holds(recorded) -> None:
     least half of them; the flash kernel with its PV partial sums rounded
     to bf16 per key tile is read and printed (flash_tol allows two bf16
     roundings of every probability and of the output, the same size as
-    this fault's; PERF.md)."""
+    this fault's; PERF.md).  The flash launches are read once more, over
+    the launch (``flash_launch_reading``): the honest kernel must read at
+    most 1 on every launch, the wrong one above 1 on at least half."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import matmul_epilogue as me
 
@@ -1419,6 +1525,22 @@ def lm_fault_holds(recorded) -> None:
         flagged_of[name] = (flagged, len(ratios))
     flagged, n = flagged_of["matmul_epilogue"]
     assert 2 * flagged >= n, "the GEMM hold misses a bf16 accumulator"
+
+    launches = [args for _, first, later in recorded["flash_attention"].values()
+                for args in (first, *later)]
+    honest = [flash_launch_reading(*args, fa._launch(*args))
+              for args in launches]
+    wrong = [flash_launch_reading(*args, flash_rounded_pv(*args))
+             for args in launches]
+    flagged = sum(r > 1.0 for r in wrong)
+    log(f"{LM_ARCH} prefill: launch-level reading of flash_attention "
+        f"(RMS of (got - tile model) / sigma, limit 1): the kernel reads "
+        f"{min(honest):.4f} to {max(honest):.4f} on {len(honest)} launches; "
+        f"planted fault 'flash_attention with its PV partial sums rounded to "
+        f"bf16 per key tile' reads {min(wrong):.3f} to {max(wrong):.3f}, "
+        f"flagged on {flagged} of {len(wrong)}")
+    assert max(honest) <= 1.0, ("flash_attention launch reading", honest)
+    assert 2 * flagged >= len(wrong), "the launch reading misses a bf16 PV"
 
 
 def host_us(fn, n: int = 50) -> float:
@@ -2024,6 +2146,7 @@ def main() -> int:
     results = hold(recorded, ("fused_conv", "matmul_epilogue",
                               "windowed_pool", "global_avgpool"),
                    timed=True, extras=extra_cases(dev))
+    gemm_tf32_fault_holds("resnet50 v4", recorded)
     del recorded
 
     # 3b) the slice's forwards: every launch held against its plain version,
@@ -2031,12 +2154,13 @@ def main() -> int:
     # v2 (the depthwise kernel timed), DenseNet121's pools timed (the first
     # avg launches); the logits of each against the CPU program
     progs, path_counts, mbv2_times = {}, {}, {}
+    gemm_forwards = {"resnet50 v4": results["matmul_epilogue"]}
     for label, timed_names in (
             ("mobilenetv2 v4", ("sep_block", "matmul_epilogue", "fused_conv",
                                 "global_avgpool")),
             ("mobilenetv2 v2", ("depthwise_conv",)),
             ("mobilenetv1 v4", ()),
-            ("densenet121 v4", ("windowed_pool",))):
+            ("densenet121 v4", ("windowed_pool", "matmul_epilogue"))):
         name, level = label.split()
         p, a, shape = model(name, dev)
         mprog = marvel.compile(a, torch.zeros((1, *shape), device=dev),
@@ -2060,6 +2184,8 @@ def main() -> int:
             e2e_check(label, mprog, a, model(name, "cpu")[0], xb)
         results.update({k: v for k, v in res.items()
                         if KERNELS[k][3] == label})
+        if "matmul_epilogue" in res:
+            gemm_forwards[label] = res["matmul_epilogue"]
 
     # 4) the main paths: serve through the async engine, counts from 0
     params_cpu, _, _ = model("resnet50", "cpu")
@@ -2132,6 +2258,15 @@ def main() -> int:
             form_entry(f"{LM_ARCH} v4 prefill", prefill["flash_attention"],
                        "wgmma")],
     }
+    # the f32 GEMM (fma form) on each CNN forward that times it
+    cnn_forwards = {"matmul_epilogue": [
+        form_entry(f"{label} batch {BATCH}", agg, "fma")
+        for label, agg in gemm_forwards.items()]}
+    for entry in cnn_forwards["matmul_epilogue"]:
+        log(f"matmul_epilogue fma form, {entry['forward']}: "
+            f"{entry['launches']} launches, {entry['ms']:.4f} ms (torch.matmul "
+            f"{entry['library_ms']:.4f}, plain {entry['plain_ms']:.4f}, bound "
+            f"{entry['bound_ms']:.5f})")
     kernels = []
     for name, (_, source, replaces, forward) in KERNELS.items():
         agg = results[name]
@@ -2147,6 +2282,7 @@ def main() -> int:
             "forward": f"{forward} {batches.get(forward, f'batch {BATCH}')}",
             "path": paths.get(name, "resnet50 v4 serve"),
             "tensor_core_forms": tensor_core.get(name, []),
+            "cnn_forwards": cnn_forwards.get(name, []),
         })
     log("(kernel times are per forward, the one each entry names: the sum "
         "over its launches of each launch's median)")

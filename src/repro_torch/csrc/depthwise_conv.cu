@@ -10,15 +10,29 @@
 //   out[n, oh, ow, c] = act(acc * es[c] + eb[c])
 //   acc = sum_{kh, kw} x[n, oh*s - top + kh, ow*s - left + kw, c]
 //                      * w[kh, kw, c]                          (int32, exact)
-// Bound on the H100: bytes.  A 3x3 tap stack does 9 MACs per int8 input
-// byte and writes 4 bytes of f32 per output, far below the card's
-// operations-per-byte line.  Design: one thread per (output pixel, 4-channel
-// group) with the channels innermost, so neighbouring threads read
-// neighbouring bytes of each tap and write neighbouring floats.  Where
-// C % 4 == 0 the taps load as one char4 and the output stores as one float4;
-// otherwise byte by byte.  The int32 sums are exact; the epilogue and act run
-// in f32 on them.  SAME/VALID padding is a bounds check with zero fill (low
-// side = total // 2), with no padded copy of the image.
+// Bound on the H100: bytes at the roofline (9 MACs per int8 input byte, 4
+// bytes of f32 out per output), but at MobileNet's batch-8 shapes those
+// bytes take 0.05-0.5 us, so what bounds a launch is latency: the launch,
+// and the round trip of the loads before the first MAC.  The design
+// answers that with one block per tile of (image, band of TH output rows,
+// group of CG = 32 or 64 channels; the wrapper's kernels/depthwise_conv.py
+// ::dw_tile picks them so MobileNet's late shapes still give a wave of
+// blocks on 132 SMs):
+//   - the block stages its int8 halo, (TH-1)*s + KH rows of (Wo rounded up
+//     to 4 - 1)*s + KW columns of CG channels, all its copies (16-byte
+//     cp.async where C and CG are multiples of 16, else bytes) issued
+//     before one wait, with the taps and the epilogue's es / eb loaded
+//     meanwhile; rows and columns outside the image (SAME puts the smaller
+//     half of the padding low, kernels/common.py::same_pads) and channels
+//     past C read as 0, so the MAC loop has no bounds check;
+//   - each thread keeps one quad of 4 channels and its KH*KW taps in
+//     registers (3x3 at stride 1 or 2 unrolled; other stacks read the taps
+//     from shared memory) and computes 4 adjacent output columns, reading
+//     each input pixel of a tap row once for the 4 (char4 from shared
+//     memory), index math in 32 bits from the block and thread indices;
+//   - the int32 sums are exact, the f32 epilogue and act run on them as
+//     before, and each output pixel's 4 channels are written as one float4
+//     (bytewise where C % 4 != 0).
 //
 // sep_block_int8:
 //   d[m, c]      = dw_act(dwconv(x)[m, c] * ds[c] + db[c])        (f32)
@@ -43,6 +57,7 @@
 // result does not vary from run to run) and applies the pointwise epilogue.
 #include <cstdint>
 
+#include "cp_async.cuh"
 #include "epilogue.cuh"
 
 namespace {
@@ -51,66 +66,188 @@ struct DwGeom {
   int N, H, W, C, KH, KW, Ho, Wo, stride, top, left;
 };
 
-// KS > 0: a KS x KS tap stack, unrolled; KS == 0: g.KH x g.KW at run time.
-template <bool VEC4, int KS>
+// output columns one thread of the depthwise kernel computes, side by side
+constexpr int DW_COLS = 2;
+
+// the depthwise block's shared memory: the int8 halo of its band, (TH-1)*s
+// + KH rows of (Wo rounded up to DW_COLS - 1)*s + KW columns of CG
+// channels (16-byte aligned), then its KH*KW*CG taps
+__host__ __device__ inline int dw_halo_h(int th, int s, int kh) {
+  return (th - 1) * s + kh;
+}
+__host__ __device__ inline int dw_halo_w(int wo, int s, int kw) {
+  return ((wo + DW_COLS - 1) / DW_COLS * DW_COLS - 1) * s + kw;
+}
+__host__ __device__ inline int dw_halo_bytes(const DwGeom& g, int th,
+                                             int cg) {
+  return (dw_halo_h(th, g.stride, g.KH) * dw_halo_w(g.Wo, g.stride, g.KW) *
+              cg + 15) & ~15;
+}
+
+// block (blockIdx.x, blockIdx.y, blockIdx.z) owns channels c0 .. c0+CG of
+// output rows oh0 .. oh0+TH of image n.  KS > 0, S > 0: a KS x KS tap
+// stack at stride S, unrolled, its taps in registers; KS == S == 0: g.KH x
+// g.KW at g.stride, the taps read from shared memory.  VEC: C and CG
+// multiples of 16 and x 16-byte aligned, so the halo is staged in 16-byte
+// copies; else byte by byte.  Thread t works channel quad t % (CG/4) of
+// every (row, column group) it visits.
+template <int KS, int S, bool VEC>
 __global__ void __launch_bounds__(256)
 depthwise_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                  const float* __restrict__ es, const float* __restrict__ eb,
-                 float* __restrict__ out, DwGeom g, int act) {
-  const int quads = (g.C + 3) / 4;
-  const size_t total = (size_t)g.N * g.Ho * g.Wo * quads;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int c0 = (int)(i % quads) * 4;
-  const size_t p = i / quads;  // output pixel, (n, oh, ow) row-major
-  const int ow = (int)(p % g.Wo);
-  const size_t t = p / g.Wo;
-  const int oh = (int)(t % g.Ho);
-  const int n = (int)(t / g.Ho);
+                 float* __restrict__ out, DwGeom g, int TH, int CG, int act) {
+  extern __shared__ __align__(16) int8_t dsm[];
   const int KH = KS > 0 ? KS : g.KH, KW = KS > 0 ? KS : g.KW;
-  const int ih0 = oh * g.stride - g.top, iw0 = ow * g.stride - g.left;
+  const int st = S > 0 ? S : g.stride;
+  const int HH = dw_halo_h(TH, st, KH);
+  const int groups = (g.Wo + DW_COLS - 1) / DW_COLS;
+  const int HW = (groups * DW_COLS - 1) * st + KW;
+  int8_t* halo = dsm;
+  int8_t* taps = dsm + dw_halo_bytes(g, TH, CG);
+  const int c0 = blockIdx.x * CG, oh0 = blockIdx.y * TH, n = blockIdx.z;
+  const int ih0 = oh0 * st - g.top, iw0 = -g.left;
   const int8_t* img = x + (size_t)n * g.H * g.W * g.C;
+  const int tid = threadIdx.x, nt = blockDim.x;
 
-  int acc[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int kh = 0; kh < KH; ++kh) {
-    const int ih = ih0 + kh;
-    if (ih < 0 || ih >= g.H) continue;
-#pragma unroll
-    for (int kw = 0; kw < KW; ++kw) {
-      const int iw = iw0 + kw;
-      if (iw < 0 || iw >= g.W) continue;
-      const int8_t* px = img + ((size_t)ih * g.W + iw) * g.C + c0;
-      const int8_t* pw = w + (size_t)(kh * KW + kw) * g.C + c0;
-      if (VEC4) {
-        const char4 a = *reinterpret_cast<const char4*>(px);
-        const char4 b = __ldg(reinterpret_cast<const char4*>(pw));
-        acc[0] += (int)a.x * (int)b.x;
-        acc[1] += (int)a.y * (int)b.y;
-        acc[2] += (int)a.z * (int)b.z;
-        acc[3] += (int)a.w * (int)b.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c0 + j < g.C) acc[j] += (int)px[j] * (int)__ldg(pw + j);
+  // 1) every copy of the halo issued, then the taps and the epilogue's
+  // constants, then one wait; outside the image (SAME padding, the rounded
+  // columns, rows past the last band) and past C reads as 0
+  if constexpr (VEC) {
+    // thread t copies 16-byte chunk t % per of columns t / per, t / per +
+    // nt / per, ... of every halo row: no division in the loop
+    const int per = CG / 16, j = tid % per, step = nt / per;
+    const int c = c0 + 16 * j;
+    for (int row = 0; row < HH; ++row) {
+      const int ih = ih0 + row;
+      const bool row_ok = ih >= 0 && ih < g.H && c < g.C;
+      const int8_t* src = img + ((size_t)ih * g.W + iw0) * g.C + c;
+      int8_t* dst = halo + (row * HW) * CG + 16 * j;
+      for (int col = tid / per; col < HW; col += step) {
+        const int iw = iw0 + col;
+        const bool ok = row_ok && iw >= 0 && iw < g.W;
+        cpa::copy16(dst + col * CG, ok ? src + (size_t)col * g.C : x,
+                    ok ? 16 : 0);
       }
+    }
+    cpa::commit();
+  } else {
+    const int total = HH * HW * CG;
+    for (int e = tid; e < total; e += nt) {
+      const int cc = e % CG, p = e / CG, col = p % HW, row = p / HW;
+      const int ih = ih0 + row, iw = iw0 + col, c = c0 + cc;
+      const bool ok = ih >= 0 && ih < g.H && iw >= 0 && iw < g.W && c < g.C;
+      halo[e] = ok ? img[((size_t)ih * g.W + iw) * g.C + c] : 0;
+    }
+  }
+  const int qg = CG / 4, q = tid % qg, c = c0 + 4 * q;
+  // the taps: with the halo's 16-byte copies where it has them, else
+  // byte by byte; a thread takes its own 4 channels' into registers after
+  // the wait
+  if constexpr (VEC) {
+    const int per = CG / 16;
+    for (int e = tid; e < KH * KW * per; e += nt) {
+      const int t = e / per, cc = c0 + 16 * (e - t * per);
+      const bool ok = cc < g.C;
+      cpa::copy16(taps + t * CG + (cc - c0), ok ? w + t * g.C + cc : w,
+                  ok ? 16 : 0);
+    }
+    cpa::commit();
+  } else {
+    for (int e = tid; e < KH * KW * CG; e += nt) {
+      const int t = e / CG, cc = c0 + (e - t * CG);
+      taps[e] = cc < g.C ? w[t * g.C + cc] : 0;
+    }
+  }
+  float s4[4], b4[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s4[j] = c + j < g.C ? cpa::load_now(es + c + j) : 0.0f;
+    b4[j] = c + j < g.C ? cpa::load_now(eb + c + j) : 0.0f;
+  }
+  if constexpr (VEC) cpa::wait<0>();
+  __syncthreads();
+  if (c >= g.C) return;
+  int tp[KS > 0 ? KS * KS : 1][4];
+  if constexpr (KS > 0) {
+#pragma unroll
+    for (int t = 0; t < KS * KS; ++t) {
+      const char4 v = *reinterpret_cast<const char4*>(taps + t * CG + 4 * q);
+      tp[t][0] = v.x;
+      tp[t][1] = v.y;
+      tp[t][2] = v.z;
+      tp[t][3] = v.w;
     }
   }
 
-  float* o = out + p * g.C + c0;
-  if (VEC4) {
-    float4 v;
-    v.x = marvel::epilogue((float)acc[0], es[c0], eb[c0], nullptr, 0, act);
-    v.y = marvel::epilogue((float)acc[1], es[c0 + 1], eb[c0 + 1], nullptr, 0, act);
-    v.z = marvel::epilogue((float)acc[2], es[c0 + 2], eb[c0 + 2], nullptr, 0, act);
-    v.w = marvel::epilogue((float)acc[3], es[c0 + 3], eb[c0 + 3], nullptr, 0, act);
-    *reinterpret_cast<float4*>(o) = v;
-  } else {
+  // 2) DW_COLS adjacent output columns x 4 channels a visit, int32 exact
+  const int th = min(TH, g.Ho - oh0), items = th * groups;
+  const bool vec_out = (g.C & 3) == 0;
+  for (int it = tid / qg; it < items; it += nt / qg) {
+    const int r = it / groups, cgi = it - r * groups;
+    const int8_t* base =
+        halo + ((r * st) * HW + cgi * DW_COLS * st) * CG + 4 * q;
+    int acc[DW_COLS][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (c0 + j < g.C)
-        o[j] = marvel::epilogue((float)acc[j], es[c0 + j], eb[c0 + j],
-                                nullptr, 0, act);
+    for (int j = 0; j < DW_COLS; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[j][k] = 0;
+    if constexpr (KS > 0) {
+      constexpr int NIN = (DW_COLS - 1) * S + KS;
+#pragma unroll
+      for (int kh = 0; kh < KS; ++kh) {
+        char4 v[NIN];
+#pragma unroll
+        for (int i = 0; i < NIN; ++i)
+          v[i] = *reinterpret_cast<const char4*>(base + (kh * HW + i) * CG);
+#pragma unroll
+        for (int j = 0; j < DW_COLS; ++j)
+#pragma unroll
+          for (int kw = 0; kw < KS; ++kw) {
+            const char4 a = v[j * S + kw];
+            const int* t = tp[kh * KS + kw];
+            acc[j][0] += (int)a.x * t[0];
+            acc[j][1] += (int)a.y * t[1];
+            acc[j][2] += (int)a.z * t[2];
+            acc[j][3] += (int)a.w * t[3];
+          }
+      }
+    } else {
+      for (int kh = 0; kh < KH; ++kh)
+        for (int kw = 0; kw < KW; ++kw) {
+          const char4 t =
+              *reinterpret_cast<const char4*>(taps + (kh * KW + kw) * CG +
+                                              4 * q);
+#pragma unroll
+          for (int j = 0; j < DW_COLS; ++j) {
+            const char4 a = *reinterpret_cast<const char4*>(
+                base + (kh * HW + j * st + kw) * CG);
+            acc[j][0] += (int)a.x * (int)t.x;
+            acc[j][1] += (int)a.y * (int)t.y;
+            acc[j][2] += (int)a.z * (int)t.z;
+            acc[j][3] += (int)a.w * (int)t.w;
+          }
+        }
+    }
+    // 3) the f32 epilogue and act on the exact sums, one float4 a column
+    float* o = out + (((size_t)n * g.Ho + oh0 + r) * g.Wo) * g.C + c;
+#pragma unroll
+    for (int j = 0; j < DW_COLS; ++j) {
+      const int ow = cgi * DW_COLS + j;
+      if (ow >= g.Wo) break;
+      float y[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        y[k] = marvel::epilogue((float)acc[j][k], s4[k], b4[k], nullptr, 0,
+                                act);
+      float* p = o + (size_t)ow * g.C;
+      if (vec_out) {
+        *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (c + k < g.C) p[k] = y[k];
+      }
+    }
   }
 }
 
@@ -281,37 +418,50 @@ __global__ void sep_splitc_kernel(const float* __restrict__ ws, int splits,
   out[i] = marvel::epilogue(acc, ps[co], pb[co], nullptr, 0, act);
 }
 
-template <bool VEC4>
-void launch_depthwise(const int8_t* x, const int8_t* w, const float* es,
-                      const float* eb, float* out, DwGeom g, int act,
-                      unsigned blocks, cudaStream_t s) {
-  if (g.KH == 3 && g.KW == 3)
-    depthwise_kernel<VEC4, 3><<<blocks, 256, 0, s>>>(x, w, es, eb, out, g, act);
-  else
-    depthwise_kernel<VEC4, 0><<<blocks, 256, 0, s>>>(x, w, es, eb, out, g, act);
+template <int KS, int S>
+int launch_depthwise(bool vec, const int8_t* x, const int8_t* w,
+                     const float* es, const float* eb, float* out, DwGeom g,
+                     int th, int cg, int act, cudaStream_t s) {
+  auto kern = vec ? depthwise_kernel<KS, S, true>
+                  : depthwise_kernel<KS, S, false>;
+  const int smem = dw_halo_bytes(g, th, cg) + g.KH * g.KW * cg;
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+  }
+  // one thread a channel quad of each (row, column group) of the band, in
+  // whole warps, at most 256
+  const int items = th * ((g.Wo + DW_COLS - 1) / DW_COLS) * (cg / 4);
+  const int threads = items >= 256 ? 256 : (items + 31) / 32 * 32;
+  dim3 grid((g.C + cg - 1) / cg, (g.Ho + th - 1) / th, g.N);
+  kern<<<grid, threads, smem, s>>>(x, w, es, eb, out, g, th, cg, act);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x (N, H, W, C) int8, w (KH, KW, C) int8, es/eb (C,) f32 -> out
-// (N, Ho, Wo, C) f32.
+// (N, Ho, Wo, C) f32, in blocks of th output rows x cg channels (cg one of
+// 4, 8, 16, 32, 64).
 extern "C" int marvel_depthwise_conv(const int8_t* x, const int8_t* w,
                                      const float* es, const float* eb,
                                      float* out, int N, int H, int W, int C,
                                      int KH, int KW, int Ho, int Wo,
-                                     int stride, int top, int left, int act,
-                                     void* stream) {
+                                     int stride, int top, int left, int th,
+                                     int cg, int act, void* stream) {
   DwGeom g{N, H, W, C, KH, KW, Ho, Wo, stride, top, left};
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t threads = (size_t)N * Ho * Wo * ((C + 3) / 4);
-  const unsigned blocks = (unsigned)((threads + 255) / 256);
-  const bool vec4 = C % 4 == 0 && ((uintptr_t)x & 3) == 0 &&
-                    ((uintptr_t)w & 3) == 0 && ((uintptr_t)out & 15) == 0;
-  if (vec4)
-    launch_depthwise<true>(x, w, es, eb, out, g, act, blocks, s);
-  else
-    launch_depthwise<false>(x, w, es, eb, out, g, act, blocks, s);
-  return (int)cudaGetLastError();
+  if (th < 1 || cg < 4 || cg > 64 || (cg & (cg - 1)) != 0 ||
+      ((uintptr_t)out & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = C % 16 == 0 && cg % 16 == 0 && ((uintptr_t)x & 15) == 0 &&
+                   ((uintptr_t)w & 15) == 0;
+  if (KH == 3 && KW == 3 && stride == 1)
+    return launch_depthwise<3, 1>(vec, x, w, es, eb, out, g, th, cg, act, s);
+  if (KH == 3 && KW == 3 && stride == 2)
+    return launch_depthwise<3, 2>(vec, x, w, es, eb, out, g, th, cg, act, s);
+  return launch_depthwise<0, 0>(vec, x, w, es, eb, out, g, th, cg, act, s);
 }
 
 // x (N, H, W, C) int8, wd (KH, KW, C) int8, ds/db (C,) f32, wp (C, Cout)

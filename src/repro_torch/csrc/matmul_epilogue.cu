@@ -6,28 +6,53 @@
 //
 //   out[m, n] = act(sum_k x[m, k] * w[k, n] * es[n] + eb[n] [+ res[m, n]])
 //
-// Bound on the H100: at ResNet50's shapes (K <= 2048, M = 4B..225B rows) a
-// full-f32 GEMM is at 2*M*N*K / 67 TFLOP/s against the bytes of x, w, the
-// residual and the output at 3.35 TB/s; the small-M late stages and the
-// N = 2 head are bound by reading w.  A bf16 LM's decode step (M = a few
-// slots) is bound by reading w; its prefill (M = B*S) by the operations.
-// Design: a classic shared-memory tiled GEMM in full f32 FMA (no TF32, so
-// the sums stay at f32 precision): each 256-thread block owns a 64x64
-// output tile, stages 64x16 tiles of x and 16x64 tiles of w in shared
-// memory, and each thread keeps a 4x4 register tile of accumulators.  The
-// operands are read in their own type: a bf16 operand is converted to f32
-// while it is staged (exactly), so the sums, the epilogue and the result are
-// bit for bit those of the same values through the f32 path, and a bf16
-// weight is never copied to f32 in device memory.  The residual may be f32
-// or bf16 too.  Ragged M, N and K are masked with zero fill, so the wrapper
-// needs no padded copies.  The epilogue runs on the register tile and the
-// f32 output is written once.
+// Bound on the H100: at the CNNs' shapes (batch 8: M = 8..8192, K =
+// 16..2048, N = 2..2048) the least time is 0.01-2 us, from the f32
+// operations (2*M*N*K at 67 TFLOP/s outside the tensor cores) or the bytes
+// (x, w, the residual and the output at 3.35 TB/s); every launch is far
+// above that, so what bounds the CUDA-core form ("fma") is latency: the
+// launch itself, each global load's round trip, and, where the tiles are
+// too few for the SMs, the split of K and the sum of its slices.  A bf16
+// LM's decode step (M = a few slots) is bound by reading w; its prefill
+// (M = B*S) by the operations.
 //
-// Split-K: the late stages and the head have too few 64x64 tiles to fill
-// 132 SMs (the head is one tile walking K = 2048 alone).  The wrapper then
-// asks for `splits` slices of K: each block sums its slice into a f32
-// workspace, and a second kernel adds the slices in a fixed order (so the
-// result does not vary from run to run) and applies the epilogue.
+// The fma form's design against that latency:
+//   - one table of seven tiles, picked with the split of K by the wrapper
+//     from the shape (kernels/matmul_epilogue.py::fma_plan, a cost model
+//     fitted to every tile and split timed on the card): BM x 64 output
+//     tiles, BM = 128, 64, 32 or 16, each thread an 8x4, 4x4, 2x4 or 1x4
+//     register tile, so the small-M late stages and the heads do not pad a
+//     64-row tile, and fewer rows a thread where the tiles are few;
+//   - a cp.async ring of 3 to 8 stages of 32- or 16-deep K steps: the
+//     copies of the next steps are in flight while a step's FMAs run, one
+//     barrier a step, and a step's zero-filled tail past K is skipped;
+//     16-byte copies where K (for x) or N (for w) is a multiple of 16
+//     bytes of elements and the base aligned, else element by element
+//     (the N = 2 heads); a K step's part past K reads as 0, and rows past
+//     M and columns past N are not copied at all (they feed only outputs
+//     that are never written), so the wrapper makes no padded copy;
+//   - the operands stay in their own type in shared memory: x row-major
+//     (each thread reads 4 consecutive k of one of its rows as one 16-byte
+//     vector, the 8 threads of a quarter warp the same address), w 64
+//     columns a row (each thread 4 consecutive n, a quarter warp 128
+//     contiguous bytes), so no store is transposed and no read conflicts
+//     on banks; a bf16 operand is widened to f32 exactly on that read, so
+//     its sums and result are bit for bit the f32 path's on the same
+//     values, and a bf16 weight is never copied;
+//   - split-K in the same launch: each slice writes its f32 partial tile
+//     to a workspace and, after the block's barrier, one thread counts it
+//     in on an int32 counter of its tile with an acq_rel atomic (releasing
+//     the block's writes); the block that counts last sums the slices in
+//     order 0..S-1 with __fadd_rn (the bits do not depend on which block
+//     that is; the partials are loaded several slices at a time, so the
+//     sum costs a few round trips, not one a slice), runs the epilogue and
+//     puts the counter back to 0.  The counters are allocated once per
+//     device by the wrapper, zero, so no launch clears them and their
+//     address stays fixed.
+// Sums in full f32 FMA on the CUDA cores: no TF32, whose 10-bit operands
+// the reference does not compute (and the latency, not the FFMA rate,
+// bounds these shapes).  The epilogue runs on the register tile and the
+// f32 output is written once, a float4 a row where N % 4 == 0.
 //
 // That CUDA-core form ("fma") runs every f32 GEMM (the CNNs: on tensor
 // cores f32 would become TF32, which the reference does not compute) and
@@ -62,87 +87,368 @@
 
 #include <cstdint>
 
+#include "cp_async.cuh"
 #include "epilogue.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16, THREADS = 256;
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+template <typename K>
+int set_smem(K kern, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T, typename R>
-__global__ void __launch_bounds__(THREADS)
-matmul_epilogue_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                       const float* __restrict__ es,
-                       const float* __restrict__ eb,
-                       const R* __restrict__ res, float* __restrict__ out,
-                       float* __restrict__ ws, int M, int N, int K,
-                       int k_per_split, int act) {
-  __shared__ float As[BK][BM];  // x tile, transposed: As[k][m]
-  __shared__ float Bs[BK][BN];  // w tile: Bs[k][n]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
+// ---------------------------------------------------------------------------
+// the CUDA-core form ("fma"): f32 sums of f32 or bf16 operands, f32 output
+// ---------------------------------------------------------------------------
 
-  float acc[4][4];
+namespace fma {
+
+constexpr int BN = 64, TN = 4;
+
+// threads of a BM x 64 tile whose threads each own TM rows x 4 columns
+__host__ __device__ constexpr int threads(int bm, int tm) {
+  return (bm / tm) * (BN / TN);
+}
+template <typename T>
+__host__ __device__ constexpr int smem(int bm, int stages, int bk) {
+  return stages * (bm * bk + bk * BN) * (int)sizeof(T);
+}
+
+// four consecutive elements of a shared-memory row as f32 (a bf16 is
+// widened exactly: its bits are the high half of the f32's)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// one element: f32 through cp.async (zero-filled when !ok), bf16 (2
+// bytes, below cp.async's smallest copy) by a plain load and store
+__device__ __forceinline__ void copy1(float* dst, const float* src, bool ok) {
+  cpa::copy4(dst, src, ok ? 4 : 0);
+}
+__device__ __forceinline__ void copy1(__nv_bfloat16* dst,
+                                      const __nv_bfloat16* src, bool ok) {
+  *dst = ok ? *src : __float2bfloat16_rn(0.0f);
+}
+
+// stage one BK-deep step: x[m0 .. m0+BM, k0 .. k0+BK) into xs (row-major,
+// BK a row) and w[k0 .. k0+BK, n0 .. n0+BN) into ws (BN a row).  k past
+// k_end reads as 0; rows past M and columns past N are not copied at all:
+// they feed only accumulators of outputs that are never written.  xv / wv:
+// 16-byte copies (K, resp. N, a multiple of 16 bytes of elements and the
+// base aligned), else one element a copy.
+template <typename T, int BM, int THREADS, int BK>
+__device__ __forceinline__ void stage(T* xs, T* ws, const T* x, const T* w,
+                                      int M, int N, int K, int m0, int n0,
+                                      int k0, int k_end, bool xv, bool wv,
+                                      int tid) {
+  constexpr int CH = 16 / (int)sizeof(T);
+  if (xv) {
+    constexpr int PER = BK / CH, TOTAL = BM * PER;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int e = tid; e < TOTAL; e += THREADS) {
+      const int r = e / PER, c = (e % PER) * CH;
+      const int gm = m0 + r, gk = k0 + c;
+      const bool ok = gk < k_end;
+      if (gm < M)
+        cpa::copy16(xs + r * BK + c, ok ? x + (size_t)gm * K + gk : x,
+                    ok ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < BM * BK; e += THREADS) {
+      const int r = e / BK, c = e % BK;
+      const int gm = m0 + r, gk = k0 + c;
+      const bool ok = gk < k_end;
+      if (gm < M) copy1(xs + e, ok ? x + (size_t)gm * K + gk : x, ok);
+    }
+  }
+  if (wv) {
+    constexpr int PER = BN / CH, TOTAL = BK * PER;
+#pragma unroll
+    for (int e = tid; e < TOTAL; e += THREADS) {
+      const int r = e / PER, c = (e % PER) * CH;
+      const int gk = k0 + r, gn = n0 + c;
+      const bool ok = gk < k_end;
+      if (gn < N)
+        cpa::copy16(ws + r * BN + c, ok ? w + (size_t)gk * N + gn : w,
+                    ok ? 16 : 0);
+    }
+  } else {
+    // columns n0 .. n0+nw of each row (the N = 2 heads copy 2, not 64)
+    const int nw = min(BN, N - n0);
+    for (int e = tid; e < BK * nw; e += THREADS) {
+      const int r = e / nw, c = e % nw;
+      const int gk = k0 + r, gn = n0 + c;
+      const bool ok = gk < k_end;
+      copy1(ws + r * BN + c, ok ? w + (size_t)gk * N + gn : w, ok);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+__device__ __forceinline__ float residual(const void* res, int res_bf16,
+                                          size_t i) {
+  return res_bf16
+             ? __bfloat162float(static_cast<const __nv_bfloat16*>(res)[i])
+             : static_cast<const float*>(res)[i];
+}
+
+// block (blockIdx.x, blockIdx.y) owns the BM x 64 output tile at (m0, n0),
+// blockIdx.z its slice [z * k_per_split, ...) of K.  Thread (ty, tx) owns
+// rows ty*TM .. +TM and columns tx*4 .. +4 of the tile.
+template <typename T, int BM, int TM, int STAGES, int BK>
+__global__ void __launch_bounds__(threads(BM, TM))
+gemm_fma_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                const float* __restrict__ es, const float* __restrict__ eb,
+                const void* __restrict__ res, int res_bf16,
+                float* __restrict__ out, float* __restrict__ ws,
+                int* __restrict__ counters, int M, int N, int K, int splits,
+                int k_per_split, int act, int xv, int wv) {
+  constexpr int THREADS = threads(BM, TM), STAGE = BM * BK + BK * BN;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  __shared__ int last;
+  const int tid = threadIdx.x, tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, z = blockIdx.z;
+  const int k_begin = z * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+  const int n_kt = (k_end - k_begin + BK - 1) / BK;
+
+  // the ring: steps 0 .. STAGES-2 in flight before the first product; one
+  // commit group a step (empty past the slice's end, so the counts match)
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_kt)
+      stage<T, BM, THREADS, BK>(sm + s * STAGE, sm + s * STAGE + BM * BK, x, w,
+                            M, N, K, m0, n0, k_begin + s * BK, k_end, xv, wv,
+                            tid);
+    cpa::commit();
+  }
+
+  // the epilogue's operands, loaded while the ring fills: es / eb, and
+  // without a split the residual
+  const int gn0 = n0 + tx * 4;
+  float s4[4], b4[4], r4[TM][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s4[j] = gn0 + j < N ? cpa::load_now(es + gn0 + j) : 0.0f;
+    b4[j] = gn0 + j < N ? cpa::load_now(eb + gn0 + j) : 0.0f;
+  }
+  const bool pre_res = res != nullptr && splits == 1;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty * TM + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      r4[i][j] = 0.0f;
+      if (pre_res && gm < M && gn0 + j < N) {
+        const size_t idx = (size_t)gm * N + gn0 + j;
+        r4[i][j] = res_bf16
+                       ? cpa::load_now_bf16(
+                             static_cast<const __nv_bfloat16*>(res) + idx)
+                       : cpa::load_now(static_cast<const float*>(res) + idx);
+      }
+    }
+  }
+
+  float acc[TM][4];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-#pragma unroll
-    for (int l = 0; l < (BM * BK) / THREADS; ++l) {
-      int e = tid + l * THREADS;
-      int r = e / BK, c = e % BK;
-      int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < k_end) ? ld(x + (size_t)gm * K + gk) : 0.0f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cpa::wait<STAGES - 2>();
+    __syncthreads();  // step kt landed; step kt-1's slot is free
+    const int pf = kt + STAGES - 1;
+    if (pf < n_kt) {
+      T* slot = sm + (pf % STAGES) * STAGE;
+      stage<T, BM, THREADS, BK>(slot, slot + BM * BK, x, w, M, N, K, m0, n0,
+                            k_begin + pf * BK, k_end, xv, wv, tid);
     }
+    cpa::commit();
+    const T* xs = sm + (kt % STAGES) * STAGE;
+    const T* wsm = xs + BM * BK;
+    // the zero-filled tail past k_end (K = 16 or 24 in a 32-deep step)
+    // adds nothing: stop at its end
+    const int kt_len = k_end - (k_begin + kt * BK);
 #pragma unroll
-    for (int l = 0; l < (BK * BN) / THREADS; ++l) {
-      int e = tid + l * THREADS;
-      int r = e / BN, c = e % BN;
-      int gk = k0 + r, gn = n0 + c;
-      Bs[r][c] = (gk < k_end && gn < N) ? ld(w + (size_t)gk * N + gn) : 0.0f;
+    for (int kk = 0; kk < BK; kk += 4) {
+      if (kk >= kt_len) break;
+      float4 a[TM], b[4];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = load4(xs + (ty * TM + i) * BK + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) b[q] = load4(wsm + (kk + q) * BN + tx * 4);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float av = q == 0 ? a[i].x : q == 1 ? a[i].y
+                           : q == 2 ? a[i].z : a[i].w;
+          acc[i][0] = fmaf(av, b[q].x, acc[i][0]);
+          acc[i][1] = fmaf(av, b[q].y, acc[i][1]);
+          acc[i][2] = fmaf(av, b[q].z, acc[i][2]);
+          acc[i][3] = fmaf(av, b[q].w, acc[i][3]);
+        }
+    }
+  }
+  cpa::wait<0>();
+
+  if (splits > 1) {
+    // split-K in this launch: every slice writes its partial tile; after
+    // the block's barrier one thread counts the slice in with an acq_rel
+    // atomic (releasing the block's writes, acquiring the other slices');
+    // the block that counts last sums the slices in order 0..splits-1 (so
+    // the bits do not depend on which block that is) and runs the epilogue
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    float* part = ws + (size_t)tile * splits * (BM * BN);
+    const int off = (ty * TM) * BN + tx * 4;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      __stcg(reinterpret_cast<float4*>(part + (size_t)z * (BM * BN) + off +
+                                       i * BN),
+             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    __syncthreads();
+    if (tid == 0) {
+      int prev;
+      asm volatile("atom.acq_rel.gpu.add.s32 %0, [%1], 1;\n"
+                   : "=r"(prev)
+                   : "l"(counters + tile)
+                   : "memory");
+      last = prev == splits - 1;
     }
     __syncthreads();
+    if (!last) return;
+    // the other slices' partials loaded B slices at a time (one round
+    // trip per B slices, not per slice; B * TM float4 in flight a thread),
+    // then added in slice order
+    constexpr int B = TM >= 8 ? 1 : 8 / TM;
+    float4 own[TM], sum[TM];
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
+    for (int i = 0; i < TM; ++i)
+      own[i] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int s0 = 0; s0 < splits; s0 += B) {
+      float4 v[B][TM];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+      for (int u = 0; u < B; ++u)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
+        for (int i = 0; i < TM; ++i)
+          if (s0 + u < splits && s0 + u != z)
+            v[u][i] = __ldcg(reinterpret_cast<const float4*>(
+                part + (size_t)(s0 + u) * (BM * BN) + off + i * BN));
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int u = 0; u < B; ++u) {
+        const int sl = s0 + u;
+        if (sl >= splits) break;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int i = 0; i < TM; ++i) {
+          const float4 val = sl == z ? own[i] : v[u][i];
+          sum[i] = sl == 0 ? val : add4(sum[i], val);
+        }
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      acc[i][0] = sum[i].x;
+      acc[i][1] = sum[i].y;
+      acc[i][2] = sum[i].z;
+      acc[i][3] = sum[i].w;
+    }
+    if (tid == 0) counters[tile] = 0;  // ready for the next launch
   }
 
+  // the epilogue, act(acc * es + eb [+ res]) rounded as marvel::epilogue
+  const bool vec_out = (N & 3) == 0 && gn0 < N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty * TM + i;
+    if (gm >= M) break;
+    const size_t row = (size_t)gm * N;
+    float y[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      int gn = n0 + tx + 16 * j;
-      if (gn >= N) continue;
-      size_t idx = (size_t)gm * N + gn;
-      if (ws != nullptr)  // split-K: this slice's partial sum
-        ws[(size_t)blockIdx.z * M * N + idx] = acc[i][j];
-      else
-        out[idx] = marvel::epilogue(acc[i][j], es[gn], eb[gn], res, idx, act);
+      float v = __fadd_rn(__fmul_rn(acc[i][j], s4[j]), b4[j]);
+      if (res != nullptr && gn0 + j < N)
+        v = __fadd_rn(v, pre_res ? r4[i][j]
+                                 : residual(res, res_bf16, row + gn0 + j));
+      y[j] = marvel::apply_act(v, act);
+    }
+    if (vec_out) {
+      *reinterpret_cast<float4*>(out + row + gn0) =
+          make_float4(y[0], y[1], y[2], y[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (gn0 + j < N) out[row + gn0 + j] = y[j];
     }
   }
 }
+
+template <typename T, int BM, int TM, int STAGES, int BK>
+int launch_tile(const void* xp, const void* wp, const float* es,
+                const float* eb, const void* res, int res_bf16, float* out,
+                float* ws, int* counters, int M, int N, int K, int splits,
+                int k_per_split, int act, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xp);
+  const T* w = static_cast<const T*>(wp);
+  constexpr int CH = 16 / (int)sizeof(T), SMEM = smem<T>(BM, STAGES, BK);
+  const int xv = K % CH == 0 && ((uintptr_t)x & 15) == 0;
+  const int wv = N % CH == 0 && ((uintptr_t)w & 15) == 0;
+  auto kern = gemm_fma_kernel<T, BM, TM, STAGES, BK>;
+  // the ring is dynamic shared memory; with the kernel's own static word
+  // it may pass the 48 KB a launch gets without asking
+  if (SMEM + 16 > 48 * 1024) {
+    const int err = set_smem(kern, SMEM);
+    if (err) return err;
+  }
+  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
+  kern<<<grid, threads(BM, TM), SMEM, s>>>(
+      x, w, es, eb, res, res_bf16, out, splits > 1 ? ws : nullptr, counters,
+      M, N, K, splits, splits > 1 ? k_per_split : K, act, xv, wv);
+  return (int)cudaGetLastError();
+}
+
+// tile index -> (BM, TM, stages of the ring, K step), as
+// kernels/matmul_epilogue.py::FMA_TILES
+template <typename T>
+int launch(int tile, const void* x, const void* w, const float* es,
+           const float* eb, const void* res, int res_bf16, float* out,
+           float* ws, int* counters, int M, int N, int K, int splits,
+           int k_per_split, int act, cudaStream_t s) {
+#define MARVEL_FMA_TILE(i, bm, tm, st, bk)                                  \
+  case i:                                                                   \
+    return launch_tile<T, bm, tm, st, bk>(x, w, es, eb, res, res_bf16, out, \
+                                          ws, counters, M, N, K, splits,    \
+                                          k_per_split, act, s);
+  switch (tile) {
+    MARVEL_FMA_TILE(0, 128, 8, 3, 32)
+    MARVEL_FMA_TILE(1, 64, 4, 4, 32)
+    MARVEL_FMA_TILE(2, 32, 4, 4, 32)
+    MARVEL_FMA_TILE(3, 16, 1, 6, 32)
+    MARVEL_FMA_TILE(4, 64, 4, 6, 16)
+    MARVEL_FMA_TILE(5, 32, 2, 8, 16)
+    MARVEL_FMA_TILE(6, 16, 1, 8, 16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef MARVEL_FMA_TILE
+}
+
+}  // namespace fma
 
 __device__ __forceinline__ void store(float* out, size_t i, float y) {
   out[i] = y;
@@ -151,9 +457,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* out, size_t i, float y) {
   out[i] = __float2bfloat16_rn(y);
 }
 
-// split-K second pass: the slices summed in order 0..splits-1, then the
-// epilogue; O is the output type (f32 for the fma form, bf16 for the
-// tensor-core forms)
+// split-K second pass of the tensor-core forms: the slices summed in order
+// 0..splits-1, then the epilogue, written in O (bf16)
 template <typename R, typename O>
 __global__ void splitk_epilogue_kernel(const float* __restrict__ ws,
                                        int splits,
@@ -169,30 +474,6 @@ __global__ void splitk_epilogue_kernel(const float* __restrict__ ws,
   for (int s = 1; s < splits; ++s) acc = __fadd_rn(acc, ws[(size_t)s * total + i]);
   int n = (int)(i % N);
   store(out, i, marvel::epilogue(acc, es[n], eb[n], res, i, act));
-}
-
-template <typename T, typename R>
-int launch(const void* xv, const void* wv, const float* es, const float* eb,
-           const void* resv, float* out, float* ws, int M, int N, int K,
-           int splits, int k_per_split, int act, cudaStream_t s) {
-  const T* x = static_cast<const T*>(xv);
-  const T* w = static_cast<const T*>(wv);
-  const R* res = static_cast<const R*>(resv);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  if (splits <= 1) {
-    matmul_epilogue_kernel<T, R><<<grid, THREADS, 0, s>>>(
-        x, w, es, eb, res, out, nullptr, M, N, K, K, act);
-    return (int)cudaGetLastError();
-  }
-  matmul_epilogue_kernel<T, R><<<grid, THREADS, 0, s>>>(
-      x, w, es, eb, res, out, ws, M, N, K, k_per_split, act);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  size_t total = (size_t)M * N;
-  unsigned blocks = (unsigned)((total + 255) / 256);
-  splitk_epilogue_kernel<R, float><<<blocks, 256, 0, s>>>(
-      ws, splits, es, eb, res, out, M, N, act);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -450,12 +731,6 @@ gemm_decode_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-template <typename K>
-int set_smem(K kern, int bytes) {
-  return (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 // form 1 (wgmma, 128x128 tiles), 3 (wgmma, 128x256 tiles) or 2 (decode);
 // x: (M, K), w: (K, N) bf16, K % 8 == 0,
 // N % 8 == 0, 16-byte aligned bases; k_per_split a multiple of TC_BK
@@ -521,17 +796,21 @@ int launch_tc(int form, const void* x, const void* w, const float* es,
 
 // x: (M, K), w: (K, N), both f32 or both bf16 (x_bf16); res: (M, N) f32 or
 // bf16 (res_bf16) or null; es, eb: (N,) f32.  form 0 (fma): out is (M, N)
-// f32, k_per_split a multiple of BK; form 1 or 3 (wgmma, 128x128 or 128x256
+// f32, `tile` indexes the fma tiles (FMA_TILES of the wrapper), k_per_split
+// is a multiple of 32, and splits > 1 needs ws, (M tiles * N tiles *
+// splits) partial tiles of BM x 64 f32, and counters, one int32 a tile, all
+// 0 (the launch leaves them 0).  form 1 or 3 (wgmma, 128x128 or 128x256
 // tiles) or 2 (decode, M <= 16): bf16 operands only, K % 8 == 0, N % 8 ==
 // 0, 16-byte aligned x and w, out (M, N) bf16, k_per_split a multiple of
-// 64.  splits > 1 needs ws: a (splits, M, N) f32 workspace, with splits *
-// k_per_split >= K.
+// 64, and splits > 1 needs ws: a (splits, M, N) f32 workspace.  Either way
+// splits * k_per_split >= K.
 extern "C" int marvel_matmul_epilogue(const void* x, const void* w,
                                       const float* es, const float* eb,
                                       const void* res, void* out, float* ws,
-                                      int M, int N, int K, int splits,
-                                      int k_per_split, int act, int x_bf16,
-                                      int res_bf16, int form, void* stream) {
+                                      int* counters, int M, int N, int K,
+                                      int splits, int k_per_split, int act,
+                                      int x_bf16, int res_bf16, int form,
+                                      int tile, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   using bf16 = __nv_bfloat16;
   if (form != 0) {
@@ -544,17 +823,12 @@ extern "C" int marvel_matmul_epilogue(const void* x, const void* w,
     return launch_tc<float>(form, x, w, es, eb, res, o, ws, M, N, K, splits,
                             k_per_split, act, s);
   }
+  if (splits > 1 && (ws == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
   float* o = static_cast<float*>(out);
-  if (x_bf16) {
-    if (res_bf16)
-      return launch<bf16, bf16>(x, w, es, eb, res, o, ws, M, N, K, splits,
-                                k_per_split, act, s);
-    return launch<bf16, float>(x, w, es, eb, res, o, ws, M, N, K, splits,
-                               k_per_split, act, s);
-  }
-  if (res_bf16)
-    return launch<float, bf16>(x, w, es, eb, res, o, ws, M, N, K, splits,
-                               k_per_split, act, s);
-  return launch<float, float>(x, w, es, eb, res, o, ws, M, N, K, splits,
-                              k_per_split, act, s);
+  if (x_bf16)
+    return fma::launch<bf16>(tile, x, w, es, eb, res, res_bf16, o, ws,
+                             counters, M, N, K, splits, k_per_split, act, s);
+  return fma::launch<float>(tile, x, w, es, eb, res, res_bf16, o, ws,
+                            counters, M, N, K, splits, k_per_split, act, s);
 }

@@ -33,11 +33,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every entry point (pointers and the stream as c_void_p, so
 # ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "marvel_matmul_epilogue": (_P,) * 7 + (_I,) * 9 + (_P,),
+    "marvel_matmul_epilogue": (_P,) * 8 + (_I,) * 10 + (_P,),
     "marvel_fused_conv": (_P,) * 7 + (_I,) * 15 + (_P,),
     "marvel_windowed_pool": (_P, _P) + (_I,) * 10 + (_P,),
     "marvel_global_avgpool": (_P, _P, _I, _I, _I, _I, _P),
-    "marvel_depthwise_conv": (_P,) * 5 + (_I,) * 12 + (_P,),
+    "marvel_depthwise_conv": (_P,) * 5 + (_I,) * 14 + (_P,),
     "marvel_sep_block": (_P,) * 9 + (_I,) * 16 + (_P,),
     "marvel_residual_rmsnorm": (_P,) * 5 + (_I, _I, _F, _I, _P),
     "marvel_flash_attention": (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _I, _P),

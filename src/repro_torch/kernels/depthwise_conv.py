@@ -33,6 +33,44 @@ from repro_torch.kernels.ref import full_f32
 _INT32_MAX = 2**31 - 1
 _GRID_Y_MAX = 65535
 BM, BN, BC = 64, 64, 32  # sep_block's tile (csrc/depthwise_conv.cu)
+DW_COLS = 2  # output columns a depthwise thread computes side by side
+DW_SMEM_MAX = 48 * 1024  # the depthwise block's halo and taps, bytes
+DW_GROUPS = (64, 32, 16, 8, 4)  # channels a depthwise block may take
+
+
+def dw_smem(th: int, cg: int, wo: int, kh: int, kw: int, stride: int) -> int:
+    """Shared memory of a depthwise block (csrc/depthwise_conv.cu): the
+    int8 halo of ``th`` output rows, (th - 1) * stride + kh input rows of
+    (wo rounded up to DW_COLS - 1) * stride + kw columns of ``cg``
+    channels, 16-byte aligned, then its kh * kw * cg taps."""
+    hh = (th - 1) * stride + kh
+    hw = (-(-wo // DW_COLS) * DW_COLS - 1) * stride + kw
+    return -(-hh * hw * cg // 16) * 16 + kh * kw * cg
+
+
+def dw_tile(n: int, ho: int, wo: int, c: int, kh: int, kw: int,
+            stride: int, sms: int) -> tuple[int, int]:
+    """(output rows, channels) of one depthwise block: groups of 32
+    channels (fewer where C is smaller; 64 where blocks of 64 still number
+    two per SM; 16 where blocks of one row of 32 would not fill the SMs
+    once), then the tallest band of rows whose blocks still number one per
+    SM, within the shared memory; where even one row does not fit, fewer
+    channels."""
+    cg = 32 if c >= 32 else max(4, 1 << (c - 1).bit_length())
+    if c >= 64 and n * -(-c // 64) * ho >= 2 * sms:
+        cg = 64
+    if cg == 32 and n * -(-c // 32) * ho < sms:
+        cg = 16
+    while cg > 4 and dw_smem(1, cg, wo, kh, kw, stride) > DW_SMEM_MAX:
+        cg //= 2
+    if dw_smem(1, cg, wo, kh, kw, stride) > DW_SMEM_MAX:
+        raise ValueError(f"a depthwise row of {wo} columns does not fit the "
+                         f"kernel's shared memory")
+    th = 1
+    while (2 * th <= ho and n * -(-c // cg) * -(-ho // (2 * th)) >= sms
+           and dw_smem(2 * th, cg, wo, kh, kw, stride) <= DW_SMEM_MAX):
+        th *= 2
+    return th, cg
 
 
 def _geometry(x_int8, w_taps, stride, padding):
@@ -113,11 +151,14 @@ def _launch_dw(x_int8, w_int8, eff_scale, eff_bias, stride, padding, act):
     check_operand(eb, "eff_bias", torch.float32, (c,))
     out = torch.empty((n, ho, wo, c), dtype=torch.float32,
                       device=x_int8.device)
+    th, cg = dw_tile(n, ho, wo, c, kh, kw, stride,
+                     build.sm_count(x_int8.device))
     with torch.cuda.device(x_int8.device):
         status = build.lib().marvel_depthwise_conv(
             x_int8.data_ptr(), w_int8.data_ptr(), es.data_ptr(),
             eb.data_ptr(), out.data_ptr(), n, h, w_in, c, kh, kw, ho, wo,
-            stride, top, left, ACT_CODES[act], build.stream_ptr(x_int8.device))
+            stride, top, left, th, cg, ACT_CODES[act],
+            build.stream_ptr(x_int8.device))
     build.check("depthwise_conv", status)
     return out
 

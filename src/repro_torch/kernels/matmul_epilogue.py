@@ -15,7 +15,10 @@ shapes, type and alignment alone (a plain predicate, no fallback):
 tensor-core forms cannot take), ``"wgmma"`` (bf16 on tensor cores, TMA-fed,
 M > :data:`DECODE_M_MAX`) and ``"decode"`` (bf16, M <= DECODE_M_MAX, bound
 by reading w once).  The fma form writes f32, converted to x.dtype here;
-the tensor-core forms write bf16 themselves.
+the tensor-core forms write bf16 themselves.  The fma form's tile comes
+from :func:`fma_tile` and its split of K from :func:`split_plan`, both
+pure functions of the shape; it sums its K slices in the same launch,
+counting them in on :func:`_counters`.
 
 :func:`matmul_epilogue` is the wrapper: CPU tensors run
 :func:`matmul_epilogue_plain`'s arithmetic, CUDA tensors launch the kernel
@@ -23,6 +26,8 @@ the tensor-core forms write bf16 themselves.
 ``matmul_epilogue.launches_by_form`` them per form).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -35,9 +40,17 @@ from repro_torch.models.layers import ACTS
 
 _INT32_MAX = 2**31 - 1
 # each form's (rows, columns, K step) of one block's tile
-# (csrc/matmul_epilogue.cu); the decode form's rows are all M
-TILES = {"fma": (64, 64, 16), "wgmma": (128, 128, 64), "decode": (None, 64, 64)}
+# (csrc/matmul_epilogue.cu); the decode form's rows are all M, the fma
+# form's rows one of FMA_TILES' (fma_tile)
+TILES = {"fma": (None, 64, 32), "wgmma": (128, 128, 64),
+         "decode": (None, 64, 64)}
 FORMS = tuple(TILES)
+# the fma form's tiles, by the index the kernel takes: (rows, rows a
+# thread, stages of the cp.async ring, K step), 64 columns, each thread 4
+# of them
+FMA_TILES = ((128, 8, 3, 32), (64, 4, 4, 32), (32, 4, 4, 32), (16, 1, 6, 32),
+             (64, 4, 6, 16), (32, 2, 8, 16), (16, 1, 8, 16))
+FMA_MAX_SPLITS = 16  # the most slices of K a plan takes
 DECODE_M_MAX = 16  # the decode form's widest M (wgmma n16)
 WIDE_BN = 256  # the wgmma form's wide tile
 WIDE_K_MIN = 8192  # ... for K at least this long
@@ -75,19 +88,127 @@ def launch_form(x2, w) -> str:
     return gemm_form(x2.shape[0], x2.shape[1], w.shape[1], dt, aligned)
 
 
+# the fma form's cost model, in microseconds, fitted by least squares to
+# every tile and split that tools/sweep_cnn_kernels.py timed on the H100
+# at the CNN forwards' shapes (PERF.md): a launch, plus each K step
+# of a slice at its tile's cost times the blocks an SM then runs (counted
+# from two at once); for a split launch, its count-in, each round trip of
+# the last block's sum (it loads 8 / TM slices at a time) and each slice
+FMA_LAUNCH_US = 5.044
+FMA_STEP_US = (2.321, 1.502, 1.193, 0.953, 0.914, 0.699, 0.574)
+FMA_SPLIT_US = (0.383, 0.345, 0.116)
+FMA_BLOCKS_AN_SM = 2
+# (M, K, N) -> (tile, slices) where the same sweep timed a plan more than
+# 3% faster than the model's (PERF.md); the model plans every other shape
+FMA_TUNED = {(72, 384, 128): (3, 12), (128, 96, 576): (5, 3),
+             (128, 1024, 256): (5, 16), (128, 1024, 512): (1, 8),
+             (392, 480, 128): (5, 8), (512, 128, 512): (1, 2),
+             (1800, 64, 128): (5, 1), (1800, 64, 256): (1, 1)}
+
+
+def _fma_cost(m: int, n: int, k: int, sms: int, tile: int,
+              splits: int) -> float:
+    """The cost model's time of one fma launch in ``tile`` with ``splits``
+    slices of K (32-deep steps)."""
+    bm, tm, stages, bk = FMA_TILES[tile]
+    blocks = -(-m // bm) * -(-n // TILES["fma"][1]) * splits
+    per = -(-(-(-k // 32)) // splits) * 32
+    steps = -(-min(k, per) // bk)
+    threads = (bm // tm) * 16
+    smem = stages * (bm * bk + bk * TILES["fma"][1]) * 4
+    resident = min(FMA_BLOCKS_AN_SM, 2048 // threads, (227 << 10) // smem)
+    load = max(1.0, blocks / (sms * resident))
+    t = FMA_LAUNCH_US + FMA_STEP_US[tile] * steps * load
+    if splits > 1:
+        batch = 1 if tm >= 8 else 8 // tm
+        t += (FMA_SPLIT_US[0] + FMA_SPLIT_US[1] * -(-splits // batch)
+              + FMA_SPLIT_US[2] * splits)
+    return t
+
+
+def fma_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
+    """(tile, slices of K) of an fma launch: :data:`FMA_TUNED`'s where the
+    sweep timed this shape, else the pair the cost model rates fastest.  A
+    tile may split K only into at most :data:`FMA_MAX_SPLITS` slices of
+    whole 32-deep steps, none empty, and only where
+    :func:`~repro_torch.kernels.common.split_k` splits its tile grid
+    (fewer tiles than SMs, so every split launch has tile counters; a
+    policy that never splits keeps every launch in one slice).  Cached per
+    shape and split policy."""
+    return _fma_plan(m, n, k, sms, split_k)
+
+
+@functools.lru_cache(maxsize=4096)
+def _fma_plan(m, n, k, sms, split_k) -> tuple[int, int]:
+    k_iters = -(-k // 32)
+
+    def may_split(tile):
+        tiles = -(-m // FMA_TILES[tile][0]) * -(-n // TILES["fma"][1])
+        # asked for a K long enough to split, split_k splits exactly the
+        # grids of fewer tiles than SMs
+        return split_k(tiles, 4 * FMA_MAX_SPLITS, sms) > 1
+
+    tuned = FMA_TUNED.get((m, k, n))
+    if tuned is not None and (tuned[1] == 1 or may_split(tuned[0])):
+        return tuned
+    best = None
+    for t in range(len(FMA_TILES)):
+        top = min(FMA_MAX_SPLITS, k_iters) if may_split(t) else 1
+        for want in range(1, top + 1):
+            splits = -(-k_iters // -(-k_iters // want))
+            cost = _fma_cost(m, n, k, sms, t, splits)
+            if best is None or cost < best[0]:
+                best = (cost, t, splits)
+    return best[1], best[2]
+
+
+def fma_tile(m: int, n: int, k: int, sms: int) -> int:
+    """The fma form's tile (an index into :data:`FMA_TILES`)."""
+    return fma_plan(m, n, k, sms)[0]
+
+
+def counter_slots(sms: int) -> int:
+    """Tile counters the fma form's split-K needs at most: it splits only
+    grids of fewer tiles than SMs."""
+    return sms
+
+
 def split_plan(form: str, m: int, n: int, k: int, sms: int):
-    """(slices of K, K per slice, tile width) of a launch: the form's output
-    tiles and K steps through :func:`~repro_torch.kernels.common.split_k`;
-    the slices cover K, each a whole number of K steps and none empty.  The
-    wgmma form splits only below half the SMs' worth of tiles: a wave it
-    fills half of still runs faster than the workspace's round trip."""
+    """(slices of K, K per slice, (tile rows, tile columns)) of a launch:
+    the form's output tiles and K steps through
+    :func:`~repro_torch.kernels.common.split_k`; the slices cover K, each a
+    whole number of K steps and none empty.  The wgmma form splits only
+    below half the SMs' worth of tiles: a wave it fills half of still runs
+    faster than the workspace's round trip.  The fma form takes
+    :func:`fma_plan`'s tile and slices, summed in the launch."""
     bm, bn, bk = TILES[form]
+    if form == "fma":
+        tile, splits = fma_plan(m, n, k, sms)
+        k_iters = -(-k // bk)
+        return splits, -(-k_iters // splits) * bk, (FMA_TILES[tile][0], bn)
     if form == "wgmma":
         bn = wgmma_tile_n(m, k, n, sms)
     tiles = -(-n // bn) * (1 if bm is None else -(-m // bm))
     k_iters = -(-k // bk)
     splits = split_k(tiles, k_iters, sms // 2 if form == "wgmma" else sms)
-    return splits, -(-k_iters // splits) * bk, bn
+    return splits, -(-k_iters // splits) * bk, (bm, bn)
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device):
+    """The fma form's split-K tile counters on ``device``: int32 zeros,
+    allocated once (a launch leaves them 0), so no launch clears them and
+    their address stays fixed."""
+    key = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        buf = torch.zeros(counter_slots(build.sm_count(device)),
+                          dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def _prepare(x, w, b, scale, shift, residual):
@@ -144,20 +265,34 @@ def _launch(x2, w, es, eb, r2, act, form=None):
                          f"{dt} operands")
     out = torch.empty((m, n), dtype=torch.float32 if form == "fma" else dt,
                       device=x2.device)
-    splits, per, bn = split_plan(form, m, n, k, build.sm_count(x2.device))
+    sms = build.sm_count(x2.device)
+    splits, per, (bm, bn) = split_plan(form, m, n, k, sms)
     # the kernel's form codes: FORMS' order, and 3 for the wgmma form's
     # 128x256 tiles
     code = 3 if form == "wgmma" and bn == WIDE_BN else FORMS.index(form)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
-          if splits > 1 else None)
+    tile, counters, ws = 0, None, None
+    if form == "fma":
+        tile = fma_tile(m, n, k, sms)
+        if splits > 1:
+            tiles = -(-m // bm) * -(-n // bn)
+            counters = _counters(x2.device)
+            if tiles > counters.numel():
+                raise ValueError(f"{tiles} split tiles exceed the "
+                                 f"{counters.numel()} tile counters")
+            ws = torch.empty(tiles * splits * bm * bn, dtype=torch.float32,
+                             device=x2.device)
+    elif splits > 1:
+        ws = torch.empty((splits, m, n), dtype=torch.float32,
+                         device=x2.device)
     with torch.cuda.device(x2.device):
         status = build.lib().marvel_matmul_epilogue(
             x2.data_ptr(), w.data_ptr(), es.data_ptr(), eb.data_ptr(),
             None if r2 is None else r2.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), m, n, k, splits, per,
-            ACT_CODES[act], int(dt == torch.bfloat16),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), m, n, k,
+            splits, per, ACT_CODES[act], int(dt == torch.bfloat16),
             int(r2 is not None and r2.dtype == torch.bfloat16),
-            code, build.stream_ptr(x2.device))
+            code, tile, build.stream_ptr(x2.device))
     build.check("matmul_epilogue", status)
     return out
 

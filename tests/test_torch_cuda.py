@@ -15,6 +15,14 @@ exact, the separable block's f32 contraction over C gets
 ``tol_from_acc(float32, C)``); TF32 is off for the plain versions, and a v0
 forward on the card matches the CPU with both TF32 flags on.
 
+The CNN path's CUDA-core kernels at the forwards' own shapes: every f32
+GEMM shape of a batch-8 ResNet50, MobileNetV2, DenseNet121 and MobileNetV1
+forward through the fma form (the N = 2 heads and K = 24 among them), and
+ragged (K % 4 != 0, N % 4 != 0) and bf16 operands, each within the
+products' magnitude bound; two launches of each give the same bits and
+every split launch leaves its tile counters 0; every depthwise shape of
+MobileNetV1/V2 at stride 1 and 2, equal to the plain version.
+
 The LM kernels: ``residual_rmsnorm`` on the grid's rows (33 x 96, 130 x
 257) and qwen3-8b's (8 and 2048 rows of 4096), ``flash_attention`` on the
 grid's grouped and ragged cases and qwen3-8b's heads, and the GEMM on bf16
@@ -80,6 +88,10 @@ POOL_CASES = [
 
 DW_CASES = [
     dict(c=5, act="none"),  # C % 4 != 0: byte loads
+    dict(c=20, stride=2, padding="SAME", act="relu6"),  # C % 16 != 0
+    dict(c=48, k=5, stride=2, padding="VALID", act="relu6"),
+    # a row too wide for 32 channels of halo: fewer channels a block
+    dict(c=32, h=6, w_sp=1200, act="none"),
     dict(c=6, stride=2, padding="SAME", act="relu"),
     dict(c=7, stride=2, padding="VALID", act="relu6"),
     dict(c=32, padding="VALID", act="relu"),  # char4 loads, float4 stores
@@ -237,6 +249,100 @@ def test_sep_block_kernel_matches_plain(card, case):
     want = dw.sep_block_int8_plain(*args, **kw)
     t = max(max(32, c["c"]) * float(np.finfo(np.float32).eps) * 8, 1e-5)
     torch.testing.assert_close(got, want, rtol=t, atol=t)  # tol_from_acc
+
+
+# ---------------------------------------------------------------------------
+# the CNN path's CUDA-core kernels at the forwards' own shapes
+# ---------------------------------------------------------------------------
+
+CNN_GEMM_MODELS = ("resnet50", "mobilenetv2", "densenet121", "mobilenetv1")
+# ragged and bf16 operands in the fma form: K % 4 != 0, N = 2 heads, K = 24,
+# N % 4 != 0, bf16 with K % 8 != 0 and a bf16 residual
+FMA_CASES = [dict(m=37, k=30, n=48), dict(m=8, k=24, n=2),
+             dict(m=2050, k=31, n=6, residual=True),
+             dict(m=8, k=2048, n=2, bf16=True),
+             dict(m=100, k=257, n=70, bf16=True),
+             dict(m=33, k=1000, n=130, bf16=True, residual=True)]
+
+
+def _cnn_sites(model, pattern):
+    """The distinct (x shape, w shape) of a pattern's sites in a batch-8
+    forward of a full-width CNN, recorded over fake tensors."""
+    from repro_torch.core import profiler
+    from repro_torch.models.cnn import get_cnn
+
+    init, apply, in_shape = get_cnn(model)
+    gen = torch.Generator().manual_seed(0)
+    sites = profiler.site_shapes(
+        lambda: apply(init(gen), torch.zeros((8, *in_shape))), pattern)
+    return sorted({(xs, ws) for _, (xs, _), (ws, _) in sites})
+
+
+def _fma_case(card, seed, m, k, n, bf16=False, residual=False, act="relu"):
+    """One fma-form launch against the plain version within
+    ``_gemm_case_tol`` (f32 output); a second launch gives the same bits;
+    a split launch leaves every tile counter at 0."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import matmul_epilogue as me
+
+    r = _rng(seed)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    x = torch.from_numpy(r.standard_normal((m, k), np.float32)).to(card, dt)
+    w = torch.from_numpy(r.standard_normal((k, n), np.float32)
+                         / np.sqrt(k)).to(card, dt)
+    es = torch.from_numpy(0.5 + r.random(n, np.float32)).to(card)
+    eb = torch.from_numpy(r.standard_normal(n, np.float32) * 0.1).to(card)
+    res = (torch.from_numpy(r.standard_normal((m, n), np.float32)).to(card, dt)
+           if residual else None)
+    got = me._launch(x, w, es, eb, res, act, "fma")
+    again = me._launch(x, w, es, eb, res, act, "fma")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, again), (m, k, n)
+    want = me._plain(x, w, es, eb, res, act)
+    err = (got - want).abs()
+    tol = _gemm_case_tol(x, w, want, es, eb, res, bf16_out=False)
+    assert (err <= tol).all(), (m, k, n, (err / tol).max().item())
+    splits = me.split_plan("fma", m, n, k, build.sm_count(card))[0]
+    if splits > 1:
+        assert int(me._counters(card).abs().sum()) == 0, (m, k, n)
+    return splits
+
+
+@pytest.mark.parametrize("model", CNN_GEMM_MODELS)
+def test_fma_gemm_at_every_cnn_shape(card, model):
+    """Every f32 GEMM shape of a batch-8 forward of the CNN through the fma
+    form, the N = 2 head and MobileNetV2's K = 24 among them; every split-K
+    shape launched twice gives the same bits and leaves its counters 0."""
+    for i, (xs, ws) in enumerate(_cnn_sites(model, "matmul_epilogue")):
+        _fma_case(card, i, int(np.prod(xs[:-1])), ws[0], ws[1],
+                  residual=i % 2 == 1)
+
+
+@pytest.mark.parametrize("case", FMA_CASES, ids=str)
+def test_fma_gemm_ragged_and_bf16_operands(card, case):
+    _fma_case(card, 0, **case)
+
+
+@pytest.mark.parametrize("model", ("mobilenetv2", "mobilenetv1"))
+def test_depthwise_at_every_mobile_shape(card, model):
+    """Every depthwise shape of a batch-8 forward of the mobile net, at
+    stride 1 and 2 with SAME padding, equal to the plain version (exact
+    int32 sums)."""
+    from repro_torch.kernels import depthwise_conv as dw
+
+    for i, (xs, ws) in enumerate(_cnn_sites(model, "depthwise_conv")):
+        r = _rng(i)
+        c = xs[-1]
+        x = torch.from_numpy(r.integers(-127, 128, xs, np.int8)).to(card)
+        w = torch.from_numpy(r.integers(-127, 128, (ws[0], ws[1], c),
+                                        np.int8)).to(card)
+        es = torch.from_numpy((r.random(c) * 1e-3).astype(np.float32)).to(card)
+        eb = torch.from_numpy(r.standard_normal(c).astype(np.float32)).to(card)
+        for stride in (1, 2):
+            kw = dict(stride=stride, padding="SAME", act="relu6")
+            got = dw.depthwise_conv_int8(x, w, es, eb, **kw)
+            want = dw.depthwise_conv_int8_plain(x, w, es, eb, **kw)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["lenet5", "resnet50"])
@@ -435,10 +541,10 @@ def test_wgmma_tile_descriptors(card, mode):
     torch.testing.assert_close(out, want, **_tol32(64))
 
 
-def _gemm_case_tol(x, w, want, es, eb, res):
+def _gemm_case_tol(x, w, want, es, eb, res, bf16_out=True):
     """Two f32 evaluations of the epilogued GEMM in other sum orders (K eps
     times the products' magnitude, the epilogue's roundings, a few ulp of
-    the act), plus the one rounding of the result to bf16."""
+    the act), plus the one rounding of the result to bf16 (``bf16_out``)."""
     from repro_torch.kernels.ref import full_f32
 
     eps = float(np.finfo(np.float32).eps)
@@ -447,7 +553,7 @@ def _gemm_case_tol(x, w, want, es, eb, res):
     extra = eb.abs() + (0 if res is None else res.float().abs())
     k = x.shape[1]
     return (1.2 * eps * ((k + 2) * mag * es.abs() + 2 * extra)
-            + (4 * eps + 2.0**-8) * want.abs())
+            + (4 * eps + (2.0**-8 if bf16_out else 0.0)) * want.abs())
 
 
 _GEMM_ACTS = ("none", "relu", "relu6", "silu", "gelu")

@@ -19,7 +19,9 @@ scale products); wkv_chunk the reference conformance runner's
 
 The GEMM kernel's form predicate and split-K plan are checked on every GEMM
 site of the six CNNs and four LMs at full width (recorded over fake
-tensors): the CNNs' f32 GEMMs on CUDA cores, every plan covering K.
+tensors): the CNNs' f32 GEMMs on CUDA cores, every plan covering K, the
+CUDA-core form's tile and its split-K counters; and the depthwise kernel's
+block geometry at every depthwise site of the mobile nets.
 """
 import functools
 
@@ -41,6 +43,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import wkv_chunk as jwk  # noqa: E402
 from repro.quant import ptq as jptq  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels import depthwise_conv as tdw  # noqa: E402
 from repro_torch.kernels import fused_conv as tfc  # noqa: E402
 from repro_torch.kernels import mac_matmul as tmm  # noqa: E402
 from repro_torch.kernels import matmul_epilogue as tme  # noqa: E402
@@ -317,22 +320,97 @@ def test_cnn_gemms_take_the_cuda_core_form(model):
             assert tme.gemm_form(rows * batch, k, n, dt) == "fma"
 
 
+def _gemm_launches(model):
+    """(form, M, K, N) of every GEMM launch of a model at every row count
+    the serving tiers run it at."""
+    for rows, k, n, dt in _gemm_sites(model):
+        for m in ([rows * b for b in range(1, 9)] if model in CNNS
+                  else LM_ROWS):
+            yield tme.gemm_form(m, k, n, dt), m, k, n
+
+
 @pytest.mark.parametrize("model", CNNS + LMS)
 def test_gemm_split_plans_cover_k(model):
     """The split-K plan of every GEMM of the ten models, in the form the
     wrapper routes it to, at every row count it runs at: whole K steps of
     the form, slices that cover K with none empty, one slice once the
     tiles fill the 132 SMs."""
-    for rows, k, n, dt in _gemm_sites(model):
-        for m in ([rows * b for b in range(1, 9)] if model in CNNS
-                  else LM_ROWS):
-            form = tme.gemm_form(m, k, n, dt)
-            bm, _, bk = tme.TILES[form]
-            splits, per, bn = tme.split_plan(form, m, n, k, 132)
-            assert per % bk == 0 and splits * per >= k
-            assert (splits - 1) * per < k, (model, form, m, k, n)
-            tiles = -(-n // bn) * (1 if bm is None else -(-m // bm))
-            assert splits == 1 or tiles < 132
+    for form, m, k, n in _gemm_launches(model):
+        bk = tme.TILES[form][2]
+        splits, per, (bm, bn) = tme.split_plan(form, m, n, k, 132)
+        assert per % bk == 0 and splits * per >= k
+        assert (splits - 1) * per < k, (model, form, m, k, n)
+        tiles = -(-n // bn) * (1 if bm is None else -(-m // bm))
+        assert splits == 1 or tiles < 132
+
+
+@pytest.mark.parametrize("model", CNNS)
+def test_fma_tile_and_split_plan(model):
+    """The fma form's tile and split plan at every f32 GEMM of the CNNs:
+    a tile of the kernel's table, taken from the same pure function the
+    wrapper calls; at most FMA_MAX_SPLITS slices, which the last block of a
+    tile sums in one launch; a split only where the tiles alone do not
+    fill the 132 SMs, so every split launch has a tile counter; and no
+    tile taller than M rounded up to the table's shortest tile."""
+    shortest = min(bm for bm, *_ in tme.FMA_TILES)
+    for form, m, k, n in _gemm_launches(model):
+        assert form == "fma"
+        t = tme.fma_tile(m, n, k, 132)
+        bm, tm, *_ = tme.FMA_TILES[t]
+        assert bm % tm == 0 and (bm // tm) * 16 <= 256
+        splits, per, tile = tme.split_plan(form, m, n, k, 132)
+        assert tile == (bm, tme.TILES["fma"][1])
+        assert 1 <= splits <= tme.FMA_MAX_SPLITS
+        tiles = -(-m // bm) * -(-n // tile[1])
+        if splits > 1:
+            assert tiles <= tme.counter_slots(132), (m, k, n)
+        assert bm <= max(shortest, -(-m // shortest) * shortest)
+
+
+def test_fma_counter_buffer_covers_every_split_grid():
+    """One int32 counter a tile, allocated once per device: enough for the
+    largest tile grid any split launch of the ten models can have, at any
+    SM count the plan may be given."""
+    for sms in (16, 66, 132, 144):
+        slots = tme.counter_slots(sms)
+        for model in CNNS + LMS:
+            for form, m, k, n in _gemm_launches(model):
+                if form != "fma":
+                    continue
+                splits, _, (bm, bn) = tme.split_plan(form, m, n, k, sms)
+                if splits > 1:
+                    assert -(-m // bm) * -(-n // bn) <= slots
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_sites(model):
+    """(x shape, taps) of every depthwise site of a full-width CNN at a
+    batch of 8 images, recorded over fake tensors."""
+    from repro_torch.core import profiler
+    from repro_torch.models.cnn import get_cnn
+
+    init, apply, in_shape = get_cnn(model)
+    gen = torch.Generator().manual_seed(0)
+    sites = profiler.site_shapes(
+        lambda: apply(init(gen), torch.zeros((8, *in_shape))),
+        "depthwise_conv")
+    assert sites
+    return [(xs, ws[:2]) for _, (xs, _), (ws, _) in sites]
+
+
+@pytest.mark.parametrize("model", ("mobilenetv1", "mobilenetv2"))
+def test_depthwise_tile_geometry(model):
+    """The depthwise kernel's blocks at every depthwise site of the mobile
+    nets, at both strides: the halo and taps fit the shared memory, the
+    channel group is one the kernel takes, and at a batch of 8 the blocks
+    fill the 132 SMs at least once."""
+    for (n, h, w_in, c), (kh, kw) in _dw_sites(model):
+        for stride in (1, 2):
+            ho, wo = -(-h // stride), -(-w_in // stride)
+            th, cg = tdw.dw_tile(n, ho, wo, c, kh, kw, stride, 132)
+            assert cg in tdw.DW_GROUPS and 1 <= th <= ho
+            assert tdw.dw_smem(th, cg, wo, kh, kw, stride) <= tdw.DW_SMEM_MAX
+            assert n * -(-c // cg) * -(-ho // th) >= 132, (h, c, stride)
 
 
 def test_gemm_form_predicate():

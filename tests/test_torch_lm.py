@@ -16,6 +16,10 @@ params, so bf16 ties cannot decide an argmax), with and without int8 KV.
 One starcoder2-3b smoke forward covers the non-gated GELU MLP with biases.
 The GEMM and attention sites of the four LMs at full width (recorded over
 fake tensors) take the tensor-core forms of their kernels.
+``chip_smoke.flash_launch_reading`` (the card's launch-level reading of
+flash attention) is held at a small shape: the honest kernel's rounding
+schedule in another f32 order reads below its limit, the schedule with a
+bf16 PV accumulator above it.
 
 Tolerances: ``tol_from_acc`` of the compared dtype and reduction length, as
 the reference's conformance runner states them (flash attention with its
@@ -194,6 +198,30 @@ def test_flash_routing_keeps_the_reference_guards(route, monkeypatch):
                                    jnp.asarray(v), kv_len=kv_len, **kw)
     np.testing.assert_allclose(n(got), n(want),
                                **kc.tol_from_acc(jnp.float32, r["skv"]))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_launch_reading_flags_a_bf16_pv_accumulator(causal):
+    """``chip_smoke.flash_launch_reading`` at a small grouped shape (2 key
+    tiles): the honest kernel's rounding schedule evaluated in another f32
+    order (float64 products rounded to f32) reads below its limit of 1;
+    the same schedule with its PV partial sums rounded to bf16 per key tile
+    (the planted fault) reads above it.  Both are torch code."""
+    import chip_smoke
+
+    r = np.random.default_rng(0)
+    bf = torch.bfloat16
+    q = torch.from_numpy(r.standard_normal((1, 128, 2, 2, 64),
+                                           np.float32)).to(bf)
+    k, v = (torch.from_numpy(r.standard_normal((1, 128, 2, 64),
+                                               np.float32)).to(bf)
+            for _ in range(2))
+    other_order = chip_smoke.flash_tile_model(
+        q, k, v, causal, dot=lambda a, b: (a.double() @ b.double()).float())
+    honest = chip_smoke.flash_launch_reading(q, k, v, causal, other_order)
+    wrong = chip_smoke.flash_launch_reading(
+        q, k, v, causal, chip_smoke.flash_rounded_pv(q, k, v, causal))
+    assert honest <= 1.0 < wrong, (honest, wrong)
 
 
 def test_rope_and_int8_kv_quantizer_match_reference():

@@ -1,0 +1,218 @@
+#!/usr/bin/env python3
+"""Sweep the tile choices of the CNN path's two CUDA-core kernels on the
+card: the f32 GEMM's ``fma`` form (every tile of ``FMA_TILES`` at every
+split of K) and ``depthwise_conv_int8`` (bands of output rows and groups of
+channels), at every distinct shape the CNN forwards give them at batch 8.
+Every configuration is held against the plain version (the GEMM within
+``chip_smoke.gemm_hold_tol``, the depthwise sums exactly) and timed as
+``chip_smoke.py`` times a kernel, beside the configuration the wrappers
+pick and the library call (``torch.matmul``, cuDNN's depthwise conv).
+
+    python3 tools/sweep_cnn_kernels.py [--out build/sweep_cnn_kernels.json]
+
+Needs a CUDA card; prints one line per shape and writes every reading to
+the JSON file.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+BATCH = 8
+GEMM_MODELS = ("resnet50", "mobilenetv2", "densenet121", "mobilenetv1")
+DW_MODELS = ("mobilenetv2", "mobilenetv1")
+SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
+def site_counts(model, pattern):
+    """{(x shape, w shape): launches} of a batch-8 forward's sites."""
+    import torch
+    from repro_torch.core import profiler
+    from repro_torch.models.cnn import get_cnn
+
+    init, apply, in_shape = get_cnn(model)
+    gen = torch.Generator().manual_seed(0)
+    sites = profiler.site_shapes(
+        lambda: apply(init(gen), torch.zeros((BATCH, *in_shape))), pattern)
+    counts: dict = {}
+    for _, (xs, _), (ws, _) in sites:
+        counts[(xs, ws)] = counts.get((xs, ws), 0) + 1
+    return counts
+
+
+def sweep_gemm(dev, sms, every=1):
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import matmul_epilogue as me
+
+    shapes: dict = {}
+    for model in GEMM_MODELS:
+        for i, ((xs, ws), cnt) in enumerate(
+                site_counts(model, "matmul_epilogue").items()):
+            if model == "densenet121" and i % every:
+                continue
+            m = int(np.prod(xs[:-1]))
+            key = (m, ws[0], ws[1])
+            shapes.setdefault(key, {})[model] = cnt
+    rows = []
+    rng = np.random.default_rng(0)
+    plan, tile_of, slots = me.split_plan, me.fma_tile, me.counter_slots
+    me.counter_slots = lambda s: 8 * s
+    me._COUNTERS.clear()
+    try:
+        for (m, k, n), users in sorted(shapes.items()):
+            x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(dev)
+            w = torch.from_numpy(rng.standard_normal((k, n), np.float32)
+                                 / np.float32(np.sqrt(k))).to(dev)
+            es = torch.from_numpy(0.5 + rng.random(n, np.float32)).to(dev)
+            eb = torch.from_numpy(rng.standard_normal(n, np.float32)).to(dev)
+            want = me._plain(x, w, es, eb, None, "relu")
+            tol = cs.gemm_hold_tol(x, w, es, eb, None, want, torch.float32)
+            picked = (tile_of(m, n, k, sms), plan("fma", m, n, k, sms)[0])
+            launch = lambda: me._launch(x, w, es, eb, None, "relu")  # noqa: E731
+            lib = cs.time_ms(lambda: torch.matmul(x, w), trials=3)
+            times = {}
+            k_iters = -(-k // 32)
+            for t, (bm, *_) in enumerate(me.FMA_TILES):
+                tiles = -(-m // bm) * -(-n // 64)
+                for s in SPLITS:
+                    per = -(-k_iters // s)
+                    if s > k_iters or (s - 1) * per >= k_iters:
+                        continue
+                    if s > 1 and tiles > me.counter_slots(sms):
+                        continue
+                    me.fma_tile = lambda *a, _t=t: _t
+                    me.split_plan = (lambda form, *a, _s=s, _p=per * 32,
+                                     _b=bm: (_s, _p, (_b, 64)))
+                    got = launch()
+                    again = launch()
+                    err, ratio = cs.held(got, want, tol)
+                    assert ratio <= 1.0, (m, k, n, t, s, err, ratio)
+                    assert torch.equal(got, again), (m, k, n, t, s)
+                    times[f"{t}/{s}"] = cs.time_ms(launch, trials=3)
+            me.fma_tile, me.split_plan = tile_of, plan
+            ms = cs.time_ms(launch, trials=3)
+            best = min(times, key=times.get)
+            row = {"m": m, "k": k, "n": n, "users": users,
+                   "picked": f"{picked[0]}/{picked[1]}", "picked_ms": ms,
+                   "best": best, "best_ms": times[best], "library_ms": lib,
+                   "times": times}
+            rows.append(row)
+            print(f"gemm M={m} K={k} N={n} {users}: picked {row['picked']} "
+                  f"{ms:.4f} ms, best {best} {times[best]:.4f} ms, "
+                  f"torch.matmul {lib:.4f} ms", flush=True)
+    finally:
+        me.fma_tile, me.split_plan, me.counter_slots = tile_of, plan, slots
+        me._COUNTERS.clear()
+    return rows
+
+
+def sweep_dw(dev, sms):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from repro_torch.kernels import depthwise_conv as dw
+
+    shapes: dict = {}
+    for model in DW_MODELS:
+        for (xs, ws), cnt in site_counts(model, "depthwise_conv").items():
+            shapes.setdefault((xs, ws), {})[model] = cnt
+    rows = []
+    rng = np.random.default_rng(1)
+    pick = dw.dw_tile
+    try:
+        for (xs, ws), users in sorted(shapes.items()):
+            # the sites' stride is not in the shapes: the models' 2-stride
+            # blocks are recorded by the profiler's own call order; time both
+            for stride in (1, 2):
+                n, h, w_in, c = xs
+                kh, kw = ws[0], ws[1]
+                x = torch.from_numpy(rng.integers(-127, 128, xs, np.int8)).to(dev)
+                w = torch.from_numpy(rng.integers(-127, 128, (kh, kw, c),
+                                                  np.int8)).to(dev)
+                es = torch.from_numpy(rng.random(c, np.float32) * 1e-3).to(dev)
+                eb = torch.from_numpy(rng.standard_normal(c, np.float32)).to(dev)
+                args = (x, w, es, eb, stride, "SAME", "relu6")
+                want = dw.depthwise_conv_int8_plain(
+                    x, w, es, eb, stride=stride, padding="SAME", act="relu6")
+                ho = want.shape[1]
+                picked = pick(n, ho, want.shape[2], c, kh, kw, stride, sms)
+                times = {}
+                for cg in (16, 32, 64):
+                    for th in (1, 2, 4, 8):
+                        if th > ho or dw.dw_smem(th, cg, want.shape[2], kh, kw,
+                                                 stride) > dw.DW_SMEM_MAX:
+                            continue
+                        dw.dw_tile = lambda *a, _t=(th, cg): _t
+                        got = dw._launch_dw(*args)
+                        torch.testing.assert_close(got, want, rtol=1e-5,
+                                                   atol=1e-5)
+                        times[f"{th}/{cg}"] = cs.time_ms(
+                            lambda: dw._launch_dw(*args), trials=3)
+                dw.dw_tile = pick
+                ms = cs.time_ms(lambda: dw._launch_dw(*args), trials=3)
+                xf = x.permute(0, 3, 1, 2).float().contiguous(
+                    memory_format=torch.channels_last)
+                wf = w.permute(2, 0, 1).unsqueeze(1).float().contiguous(
+                    memory_format=torch.channels_last)
+                lib = cs.time_ms(lambda: F.conv2d(
+                    xf, wf, stride=stride, padding=kh // 2, groups=c),
+                    trials=3)
+                best = min(times, key=times.get)
+                row = {"x": list(xs), "k": [kh, kw], "stride": stride,
+                       "users": users, "picked": f"{picked[0]}/{picked[1]}",
+                       "picked_ms": ms, "best": best,
+                       "best_ms": times[best], "library_ms": lib,
+                       "times": times}
+                rows.append(row)
+                print(f"depthwise x{tuple(xs)} k{kh}x{kw} s{stride} {users}: "
+                      f"picked {row['picked']} {ms:.4f} ms, best {best} "
+                      f"{times[best]:.4f} ms, cuDNN {lib:.4f} ms", flush=True)
+    finally:
+        dw.dw_tile = pick
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=os.path.join(ROOT, "build",
+                                                  "sweep_cnn_kernels.json"))
+    ap.add_argument("--densenet-every", type=int, default=1,
+                    help="time every n-th distinct DenseNet121 GEMM shape")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("sweep: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    dev = torch.device("cuda")
+    build.lib()
+    sms = build.sm_count(dev)
+    result = {"card": card, "gemm": sweep_gemm(dev, sms, args.densenet_every),
+              "depthwise": sweep_dw(dev, sms)}
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

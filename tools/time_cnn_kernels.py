@@ -1,0 +1,77 @@
+#!/usr/bin/env python3
+"""Time the CNN path's f32 GEMM (``matmul_epilogue``, fma form) and int8
+depthwise kernels of one source tree on the card, per forward, as
+``chip_smoke.py`` times them: one recorded batch-8 forward of ResNet50,
+MobileNetV2 and DenseNet121 at v4 (the GEMM) and MobileNetV2 at v2 (the
+depthwise kernel), every launch held against its plain version, the first
+launch of each shape timed beside its library call, the times summed over
+the forward's launches.
+
+    python3 tools/time_cnn_kernels.py [--tree DIR] [--tag NAME]
+
+``--tree`` is the root of the checkout whose kernels are timed (default:
+this one), so two trees can be timed in turns in one run on one card
+(its ``chip_smoke.py`` and ``src/`` are the ones imported).  Prints the
+card and one JSON line per forward.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+FORWARDS = (("resnet50 v4", "matmul_epilogue"),
+            ("mobilenetv2 v4", "matmul_epilogue"),
+            ("densenet121 v4", "matmul_epilogue"),
+            ("mobilenetv2 v2", "depthwise_conv"))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--tag", default="")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, os.path.join(tree, "src"))
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_cnn_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from repro_torch import marvel
+    from repro_torch.launch.serve import random_images
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    for label, kernel in FORWARDS:
+        name, level = label.split()
+        params, apply, shape = cs.model(name, dev)
+        prog = marvel.compile(apply, torch.zeros((1, *shape), device=dev),
+                              params=params, level=level)
+        batch = torch.from_numpy(np.stack(random_images(
+            shape, cs.BATCH))).to(dev)
+        rec, counts, _ = cs.record_launches(prog, batch)
+        agg = cs.hold(rec, (kernel,), timed=True)[kernel]
+        print(json.dumps({
+            "tag": args.tag, "tree": tree, "forward": label,
+            "kernel": kernel, "launches": counts[kernel], "ms": agg["ms"],
+            "library_ms": agg["library_ms"], "plain_ms": agg["plain_ms"],
+            "bound_ms": max(agg["t_bytes"], agg["t_ops"]), "card": card}),
+            flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

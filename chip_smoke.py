@@ -30,8 +30,12 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    GEMM launches;
 3b. the same recorded batch-8 forward for MobileNetV2 at v4 (every kernel
    timed), MobileNetV2 at v2 (the standalone depthwise kernel timed),
-   MobileNetV1 at v4 and DenseNet121 at v4 (its pools and its 62 GEMM
-   launches timed; each forward's GEMM total is printed).  Each
+   MobileNetV1 at v4 (its separable blocks timed) and DenseNet121 at v4
+   (its pools and its 62 GEMM launches timed; each forward's GEMM total is
+   printed).  Each mobile net's separable-block total is printed on a line
+   of its own beside the unfused library pair at the same shapes
+   (``sep_pair_ms``: cuDNN's depthwise conv in f32, then ``torch.matmul``;
+   a yardstick the port never calls).  Each
    forward runs with every launch counter set to 0 just before and read
    just after, and must launch each kernel as often as the reference
    dispatches it.  The per-launch tolerance must flag more separable-block
@@ -104,7 +108,10 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    exactly 24 wkv_chunk and 48 matmul_epilogue launches (the GEMMs in the
    wgmma form, timed beside the fma form), every one held
    (``wkv_tol``: the error carried through the chunks from each column's
-   own decay sum, beside the recurrence on |r|, |k|, |v|, |u|, |s0|), each
+   own decay sum, beside the recurrence on |r|, |k|, |v|, |u|, |s0|; the
+   first launch's distance from ``wkv_split_model``, the plain mirror of
+   the kernel's decomposition that the CPU tests hold against the
+   reference, is printed beside it), each
    shape timed beside its bound and library call (none for the
    recurrence), the forward's wall time beside its kernels' device time;
    every launch must be flagged when the kernel's bonus term is dropped or
@@ -470,6 +477,31 @@ def sep_tol(args, want):
     return gemm_tol(wp.shape[0], mag, want, ps, pb)
 
 
+def sep_pair_ms(args) -> float:
+    """The unfused library pair at a separable block's shape, a yardstick
+    the port never calls: cuDNN's depthwise conv in f32 (channels last,
+    TF32 off), then ``torch.matmul`` in f32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import full_f32
+
+    x, wd, _, _, wp, _, _, stride, padding, _, _ = args
+    kh, _, c = wd.shape
+    xf = x.permute(0, 3, 1, 2).float().contiguous(
+        memory_format=torch.channels_last)
+    wf = wd.permute(2, 0, 1).unsqueeze(1).float().contiguous(
+        memory_format=torch.channels_last)
+    wpf = wp.float()
+
+    def pair():
+        y = F.conv2d(xf, wf, stride=stride,
+                     padding=kh // 2 if padding == "SAME" else 0, groups=c)
+        return torch.matmul(y.permute(0, 2, 3, 1).reshape(-1, c), wpf)
+
+    with full_f32():
+        return time_ms(pair)
+
+
 def sep_case(args, timed=True):
     from repro_torch.kernels import depthwise_conv as dw
 
@@ -496,8 +528,10 @@ def sep_case(args, timed=True):
     ms1 = one_slice_ms(dw, lambda: dw._launch_sep(*ops, stride, padding,
                                                   dw_act, pw_act))
     plain = time_ms(lambda: dw.sep_block_int8_plain(*ops, **kw), reps=5)
-    return (f"{label} (one C slice: {ms1:.4f} ms)", err, tol, ms, plain,
-            None, b)
+    pair = sep_pair_ms(args)
+    return (f"{label} (one C slice: {ms1:.4f} ms; cuDNN depthwise + "
+            f"torch.matmul {pair:.4f} ms)", err, tol, ms, plain, None, b,
+            {"pair_ms": pair})
 
 
 def rmsnorm_case(args, timed=True):
@@ -668,6 +702,68 @@ def wkv_tol(args, want, want_s):
             2.4 * es + 4 * F32_EPS * want_s.abs() + 1e-30)
 
 
+def wkv_split_model(r, k, v, lw, u, s0, chunk, sub=16):
+    """A plain mirror of csrc/wkv_chunk.cu's arithmetic, for tests and for
+    reading the kernel against it: (a) each chunk from the chunk alone --
+    the inclusive cumsum cum and cx[t] = cum[t - 1], the bonus, A by direct
+    exps inside each ``sub``-token sub-chunk and, across sub-chunks, as the
+    product of the rows of a binary split (level d's upper rows times
+    exp(cx - cum[e]), its lower rows times exp(cum[e] - cum), e the node's
+    boundary token), the intra-chunk output A v, U = (k exp(cum[C-1] -
+    cum))^T v and the decay exp(cum[C-1]); (b) the scan S_c = decay S_{c-1}
+    + U_c from s0; (c) the from-state term (r exp(cx)) S_{c-1}, added as
+    (from-state + intra) + bonus v.  Every exponent is <= 0.  Returns
+    (out (B, S, H, N), s_final (B, H, N, N)), f32."""
+    import torch
+    from repro_torch.kernels.ref import NEG_INF, full_f32
+
+    b, s_len, h, n = r.shape
+    nc = s_len // chunk
+
+    def chunks(t):  # (B, S, H, N) -> (B, H, nc, C, N)
+        return t.float().reshape(b, nc, chunk, h, n).permute(0, 3, 1, 2, 4)
+
+    rc, kc, vc, lwc = (chunks(t) for t in (r, k, v, lw))
+    tok = torch.arange(chunk, device=r.device)
+    same = ((tok[:, None] // sub == tok[None, :] // sub)
+            & (tok[:, None] > tok[None, :]))
+    nsub = -(-chunk // sub)
+    with full_f32():
+        # (a)
+        cum = torch.cumsum(lwc, dim=3)
+        cx = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]],
+                       dim=3)
+        last = cum[..., -1, :]
+        a = (rc[..., :, None, :] * kc[..., None, :, :] * torch.exp(
+            torch.where(same[..., None], cx[..., :, None, :]
+                        - cum[..., None, :, :], NEG_INF))).sum(-1)
+        for d in range(1, (nsub - 1).bit_length() + 1):
+            for base in range(0, nsub, 1 << d):
+                mid = base + (1 << (d - 1))
+                if mid >= nsub:
+                    break
+                lo, hi = sub * mid, min(sub * (base + (1 << d)), chunk)
+                e = cum[..., lo - 1:lo, :]
+                upper = rc[..., lo:hi, :] * torch.exp(cx[..., lo:hi, :] - e)
+                lower = (kc[..., sub * base:lo, :]
+                         * torch.exp(e - cum[..., sub * base:lo, :]))
+                a[..., lo:hi, sub * base:lo] = upper @ lower.transpose(-1, -2)
+        o_intra = a @ vc
+        bonus = (rc * (u.float()[None, :, None, None, :] * kc)).sum(-1)
+        kd = kc * torch.exp(last[..., None, :] - cum)
+        contrib = kd.transpose(-1, -2) @ vc
+        decay = torch.exp(last)[..., None]
+        # (b)
+        state, before = s0.float(), []
+        for c in range(nc):
+            before.append(state)
+            state = decay[:, :, c] * state + contrib[:, :, c]
+        # (c)
+        o_state = (rc * torch.exp(cx)) @ torch.stack(before, dim=2)
+        out = (o_state + o_intra) + bonus[..., None] * vc
+    return out.permute(0, 2, 3, 1, 4).reshape(b, s_len, h, n), state
+
+
 def wkv_case(args, timed=True):
     from repro_torch.kernels import wkv_chunk as wk
     from repro_torch.kernels.ref import wkv_chunk_ref
@@ -692,6 +788,12 @@ def wkv_case(args, timed=True):
     err = max(err, err_s)
     if not timed:
         return untimed(label, err, tol_s_, b_)
+    # the kernel against the plain mirror of its own decomposition
+    mirror, mirror_s = wkv_split_model(*args)
+    label += (f" (vs wkv_split_model: max |diff| "
+              f"{(got - mirror).abs().max().item():.3e}, state "
+              f"{(got_s - mirror_s).abs().max().item():.3e})")
+    del mirror, mirror_s
     ms = time_ms(lambda: wk._launch(*args))
     plain = time_ms(lambda: wkv_chunk_ref(*args), reps=5)
     return label, err, tol_s_, ms, plain, None, b_
@@ -2159,7 +2261,7 @@ def main() -> int:
             ("mobilenetv2 v4", ("sep_block", "matmul_epilogue", "fused_conv",
                                 "global_avgpool")),
             ("mobilenetv2 v2", ("depthwise_conv",)),
-            ("mobilenetv1 v4", ()),
+            ("mobilenetv1 v4", ("sep_block",)),
             ("densenet121 v4", ("windowed_pool", "matmul_epilogue"))):
         name, level = label.split()
         p, a, shape = model(name, dev)
@@ -2176,6 +2278,12 @@ def main() -> int:
              timed=False)
         if counts["sep_block"]:
             tf32_fault_holds(label, rec)
+        if "sep_block" in res:
+            log(f"{label}: sep_block {res['sep_block']['ms']:.4f} ms over "
+                f"its {counts['sep_block']} launches; the unfused library "
+                f"pair at the same shapes (cuDNN's depthwise conv in f32, "
+                f"then torch.matmul; a yardstick the port never calls) "
+                f"{res['sep_block']['pair_ms']:.4f} ms on {card}")
         del rec
         if label == "mobilenetv2 v4":
             mbv2_times = res

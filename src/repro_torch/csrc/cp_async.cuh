@@ -1,5 +1,6 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and later) for the
-// CUDA-core kernels: the f32 GEMM's staging ring and the depthwise halo.
+// CUDA-core kernels: the f32 GEMM's staging ring, the depthwise halo, the
+// separable block's staged taps and weights, and the wkv chunk tiles.
 // A copy whose source is outside the tensor passes src_bytes = 0: nothing
 // is read and the destination is filled with zeros, so ragged edges and
 // SAME padding need no branch around the copy.
@@ -17,6 +18,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void copy16(void* dst, const void* src,
                                        int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 8 bytes, both addresses 8-byte aligned; src_bytes is 8 or 0
+__device__ __forceinline__ void copy8(void* dst, const void* src,
+                                      int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");

@@ -37,24 +37,45 @@
 // sep_block_int8:
 //   d[m, c]      = dw_act(dwconv(x)[m, c] * ds[c] + db[c])        (f32)
 //   out[m, co]   = pw_act((sum_c d[m, c] * float(wp[c, co])) * ps[co] + pb[co])
-// Bound on the H100: at MobileNet's shapes, bytes (the int8 image and
-// weights in, the f32 output), with the f32 pointwise contraction on the
-// CUDA cores next.  Design: each 256-thread block owns a tile of 64 output
-// pixels x 64 output channels and walks C in chunks of 32.  For each chunk
-// it (1) recomputes the depthwise tile in int32 from the int8 image, two
-// pixels x four channels per thread, taps as char4 where C % 4 == 0;
-// (2) applies the depthwise epilogue and act in f32 into shared memory, so
-// the (N, Ho, Wo, C) intermediate never reaches device memory; (3) converts
-// the chunk of int8 pointwise weights to f32 in shared memory and
-// contracts, each thread keeping a 4x4 f32 register tile summed with CUDA-
-// core FMAs in channel order.  No TF32: the reference contracts in f32.  The
-// pointwise epilogue runs once at the end and the output is written once.
-//
-// Split-C: MobileNet's late blocks have few output tiles (32 pixels at
-// batch 8 against C = 960..1024), so the wrapper may ask for `splits`
-// slices of C.  Each block then writes its slice's f32 partial sums to a
-// workspace, and a second kernel adds the slices in a fixed order (the
-// result does not vary from run to run) and applies the pointwise epilogue.
+// Bound on the H100: at MobileNet's batch-8 shapes the bytes (the int8
+// image and weights in, the f32 output) and the f32 pointwise FLOPs take
+// 0.03-0.3 us a launch, so what bounds it is latency: the launch, the
+// round trips of the loads, and the chain of channel chunks a block walks.
+// The first kernel (one 64 x 64 tile for every shape, the depthwise tile
+// recomputed for every N tile, taps and pixels read from global memory
+// with a bounds test a tap, weights converted synchronously, split-C
+// through a second kernel) took 31.5 us a launch on average over
+// MobileNetV2 v4's 17 (H100 80GB HBM3, 700 W).  This design:
+//   - a tile planned per shape in the wrapper (kernels/depthwise_conv.py
+//     ::sep_plan): BM of 32, 64 or 128 pixels by BN of 16..128 output
+//     channels.  Its rule takes all of Cout up to 128 in one block, so
+//     each depthwise element is computed once, with tiles that fill the
+//     SMs where M allows; a sweep of every tile and split on the card
+//     (tools/sweep_cnn_kernels.py) found more, narrower tiles faster at M
+//     <= 128, where blocks, not repeated depthwise work, are short, and
+//     those shapes take the sweep's plan (SEP_TUNED);
+//   - each chunk of 32 channels staged with cp.async in one group: for
+//     every (pixel, tap) of the tile its 32 channels (tiles of consecutive
+//     pixels span images at the late 2x2 and 4x4 shapes, so the staging is
+//     per tap, not a halo: at most KH KW times the input's bytes, from L2),
+//     the taps, the pointwise weights' rows and the depthwise scale and
+//     bias; pixels outside the image and channels past C arrive as 0, so
+//     the MAC loop has no bounds test; the next chunk's copies go out
+//     under this chunk's work (two stages);
+//   - the depthwise tile in exact int32 (a channel quad of a pixel a
+//     thread), its f32 epilogue and act into shared memory, so the
+//     intermediate never reaches device memory, then the pointwise
+//     contraction in f32 FMAs in channel order on a register tile (no
+//     TF32: the reference contracts in f32);
+//   - split-C in the same launch: where the tiles do not fill the SMs the
+//     wrapper splits C into slices of whole chunks; each slice writes its
+//     partial tile, counts in on a tile counter (acq_rel), and the last
+//     block sums the slices in order 0..splits-1 (the bits do not depend
+//     on which block that is) and runs the pointwise epilogue once.
+// Measured (tools/time_cnn_kernels.py, H100 80GB HBM3, 700 W): 6.4-14 us a
+// launch, 0.54 -> 0.15 ms for MobileNetV2 v4's 17; the launch and the
+// chain of a block's load, barriers and count-in bound it, not bytes or
+// FLOPs.
 #include <cstdint>
 
 #include "cp_async.cuh"
@@ -251,173 +272,6 @@ depthwise_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-constexpr int SB_M = 64, SB_N = 64, SB_C = 32, SB_THREADS = 256;
-constexpr int SB_QUADS = SB_C / 4;                 // channel quads per chunk
-constexpr int SB_ROWS = SB_THREADS / SB_QUADS;     // pixel rows per pass
-constexpr int SB_PIX = SB_M / SB_ROWS;             // pixels per thread
-
-template <int KS>
-__global__ void __launch_bounds__(SB_THREADS)
-sep_block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wd,
-                 const float* __restrict__ ds, const float* __restrict__ db,
-                 const int8_t* __restrict__ wp, const float* __restrict__ ps,
-                 const float* __restrict__ pb, float* __restrict__ out,
-                 float* __restrict__ ws, DwGeom g, int Cout, int c_per_split,
-                 int dw_act, int pw_act, int vec4) {
-  __shared__ float Ds[SB_C][SB_M + 1];  // dw tile after its act: Ds[c][m]
-  __shared__ float Ws[SB_C][SB_N];      // pw weights as f32: Ws[c][n]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int M = g.N * g.Ho * g.Wo;
-  const int m0 = blockIdx.y * SB_M, n0 = blockIdx.x * SB_N;
-  const int c_begin = blockIdx.z * c_per_split;
-  const int c_end = min(g.C, c_begin + c_per_split);
-  const int KH = KS > 0 ? KS : g.KH, KW = KS > 0 ? KS : g.KW;
-
-  // the depthwise work of this thread: channel quad `cq` of each chunk, at
-  // pixel rows rbase + SB_ROWS * l of the tile
-  const int cq = tid % SB_QUADS, rbase = tid / SB_QUADS;
-  int ih0[SB_PIX], iw0[SB_PIX];
-  size_t img[SB_PIX];
-  bool mvalid[SB_PIX];
-#pragma unroll
-  for (int l = 0; l < SB_PIX; ++l) {
-    const int m = m0 + rbase + SB_ROWS * l;
-    mvalid[l] = m < M;
-    const int mm = mvalid[l] ? m : 0;
-    const int ow = mm % g.Wo;
-    const int t = mm / g.Wo;
-    const int oh = t % g.Ho;
-    const int n = t / g.Ho;
-    ih0[l] = oh * g.stride - g.top;
-    iw0[l] = ow * g.stride - g.left;
-    img[l] = (size_t)n * g.H * g.W * g.C;
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int c0 = c_begin; c0 < c_end; c0 += SB_C) {
-    // 1) the depthwise tile of this chunk, int32 and exact
-    const int cb = c0 + cq * 4;
-    const bool quad = vec4 && cb < c_end;  // C % 4 == 0: whole quads
-    int dacc[SB_PIX][4];
-#pragma unroll
-    for (int l = 0; l < SB_PIX; ++l)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dacc[l][j] = 0;
-    if (cb < c_end) {
-#pragma unroll
-      for (int kh = 0; kh < KH; ++kh) {
-#pragma unroll
-        for (int kw = 0; kw < KW; ++kw) {
-          const int8_t* tp = wd + (size_t)(kh * KW + kw) * g.C + cb;
-          int tap[4];
-          if (quad) {
-            const char4 b = __ldg(reinterpret_cast<const char4*>(tp));
-            tap[0] = b.x; tap[1] = b.y; tap[2] = b.z; tap[3] = b.w;
-          } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              tap[j] = cb + j < c_end ? (int)__ldg(tp + j) : 0;
-          }
-#pragma unroll
-          for (int l = 0; l < SB_PIX; ++l) {
-            const int ih = ih0[l] + kh, iw = iw0[l] + kw;
-            if (!mvalid[l] || ih < 0 || ih >= g.H || iw < 0 || iw >= g.W)
-              continue;
-            const int8_t* px = x + img[l] + ((size_t)ih * g.W + iw) * g.C + cb;
-            if (quad) {
-              const char4 a = *reinterpret_cast<const char4*>(px);
-              dacc[l][0] += (int)a.x * tap[0];
-              dacc[l][1] += (int)a.y * tap[1];
-              dacc[l][2] += (int)a.z * tap[2];
-              dacc[l][3] += (int)a.w * tap[3];
-            } else {
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                if (cb + j < c_end) dacc[l][j] += (int)px[j] * tap[j];
-            }
-          }
-        }
-      }
-    }
-    // 2) its epilogue and act in f32, into shared memory; channels past the
-    // chunk and pixels past M contribute 0
-#pragma unroll
-    for (int l = 0; l < SB_PIX; ++l)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = cb + j;
-        float v = 0.0f;
-        if (mvalid[l] && c < c_end)
-          v = marvel::epilogue((float)dacc[l][j], ds[c], db[c], nullptr, 0,
-                               dw_act);
-        Ds[cq * 4 + j][rbase + SB_ROWS * l] = v;
-      }
-    // 3) the chunk of pointwise weights, int8 -> f32
-#pragma unroll
-    for (int l = 0; l < (SB_C * SB_N) / SB_THREADS; ++l) {
-      const int e = tid + l * SB_THREADS;
-      const int r = e / SB_N, col = e % SB_N;
-      const int c = c0 + r, gn = n0 + col;
-      Ws[r][col] = (c < c_end && gn < Cout)
-                       ? (float)wp[(size_t)c * Cout + gn] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < SB_C; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Ds[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= Cout) continue;
-      const size_t idx = (size_t)gm * Cout + gn;
-      if (ws != nullptr)  // split-C: this slice's partial sum
-        ws[(size_t)blockIdx.z * M * Cout + idx] = acc[i][j];
-      else
-        out[idx] = marvel::epilogue(acc[i][j], ps[gn], pb[gn], nullptr, 0,
-                                    pw_act);
-    }
-  }
-}
-
-// split-C second pass: the slices summed in order 0..splits-1, then the
-// pointwise epilogue
-__global__ void sep_splitc_kernel(const float* __restrict__ ws, int splits,
-                                  const float* __restrict__ ps,
-                                  const float* __restrict__ pb,
-                                  float* __restrict__ out, int M, int Cout,
-                                  int act) {
-  const size_t total = (size_t)M * Cout;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float acc = ws[i];
-  for (int s = 1; s < splits; ++s)
-    acc = __fadd_rn(acc, ws[(size_t)s * total + i]);
-  const int co = (int)(i % Cout);
-  out[i] = marvel::epilogue(acc, ps[co], pb[co], nullptr, 0, act);
-}
-
 template <int KS, int S>
 int launch_depthwise(bool vec, const int8_t* x, const int8_t* w,
                      const float* es, const float* eb, float* out, DwGeom g,
@@ -436,6 +290,306 @@ int launch_depthwise(bool vec, const int8_t* x, const int8_t* w,
   const int threads = items >= 256 ? 256 : (items + 31) / 32 * 32;
   dim3 grid((g.C + cg - 1) / cg, (g.Ho + th - 1) / th, g.N);
   kern<<<grid, threads, smem, s>>>(x, w, es, eb, out, g, th, cg, act);
+  return (int)cudaGetLastError();
+}
+
+constexpr int SB_C = 32;  // channels of a chunk
+constexpr int SB_THREADS = 256;
+
+// bytes of one stage of a chunk's copies: the (pixel, tap) vectors, the
+// taps, the pointwise weights' rows, then the depthwise scale and bias
+__host__ __device__ inline int sb_stage_bytes(int bm, int bn, int taps) {
+  return bm * taps * SB_C + taps * SB_C + SB_C * bn + 2 * SB_C * 4;
+}
+
+// the block's shared memory (kernels/depthwise_conv.py::sep_smem mirrors
+// it): two stages, the f32 depthwise tile (SB_C rows of bm + 1), the f32
+// weights (SB_C rows of bn) and the (pixel, tap) image offsets
+__host__ __device__ inline int sb_smem(int bm, int bn, int taps) {
+  return 2 * sb_stage_bytes(bm, bn, taps) + SB_C * (bm + 1) * 4 +
+         SB_C * bn * 4 + bm * taps * 4;
+}
+
+// block (blockIdx.x, blockIdx.y, blockIdx.z) owns output channels n0 ..
+// n0+BN of pixels m0 .. m0+BM and chunks [z cps, (z+1) cps) of C.  Thread
+// (ty, tx) keeps rows ty + GY i and columns tx + GX j of the tile.  VEC:
+// C % 16 == 0, x, wd, ds and db 16-byte aligned, Cout % 4 == 0 and wp
+// 4-byte aligned (its rows copied in wq = 16, 8 or 4 bytes), so every
+// stage is cp.async; else bytes loaded in place.
+template <int BM, int BN, bool VEC>
+__global__ void __launch_bounds__(SB_THREADS)
+sep_block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wd,
+                 const float* __restrict__ ds, const float* __restrict__ db,
+                 const int8_t* __restrict__ wp, const float* __restrict__ ps,
+                 const float* __restrict__ pb, float* __restrict__ out,
+                 float* __restrict__ ws, int* __restrict__ counters, DwGeom g,
+                 int Cout, int wq, int cps, int dw_act, int pw_act) {
+  constexpr int TN = BN >= 64 ? 4 : BN / 16;
+  constexpr int GX = BN / TN, GY = SB_THREADS / GX, TM = BM / GY;
+  static_assert(GX * TN == BN && GY * TM == BM && TM >= 1, "sep tile");
+  extern __shared__ __align__(16) int8_t sb[];
+  __shared__ int last;
+  const int T = g.KH * g.KW;
+  const int stage = sb_stage_bytes(BM, BN, T);
+  float* Ds = reinterpret_cast<float*>(sb + 2 * stage);  // Ds[c][m], BM + 1
+  float* Wf = Ds + SB_C * (BM + 1);                      // Wf[c][n]
+  int* off = reinterpret_cast<int*>(Wf + SB_C * BN);     // off[p * T + t]
+  const int tid = threadIdx.x, tx = tid % GX, ty = tid / GX;
+  const int M = g.N * g.Ho * g.Wo;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int z = blockIdx.z, splits = gridDim.z;
+  const int k_begin = z * cps;
+  const int k_end = min((g.C + SB_C - 1) / SB_C, k_begin + cps);
+
+  // where each (pixel, tap) of the tile reads the image; -1 outside it
+  // (SAME padding) and past M
+  for (int e = tid; e < BM * T; e += SB_THREADS) {
+    const int p = e / T, t = e - p * T, m = m0 + p;
+    int o = -1;
+    if (m < M) {
+      const int ow = m % g.Wo, r = m / g.Wo, oh = r % g.Ho, n = r / g.Ho;
+      const int ih = oh * g.stride - g.top + t / g.KW;
+      const int iw = ow * g.stride - g.left + t % g.KW;
+      if (ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
+        o = ((n * g.H + ih) * g.W + iw) * g.C;
+    }
+    off[e] = o;
+  }
+  float pss[TN], pbs[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    const int n = n0 + tx + GX * j;
+    pss[j] = n < Cout ? cpa::load_now(ps + n) : 0.0f;
+    pbs[j] = n < Cout ? cpa::load_now(pb + n) : 0.0f;
+  }
+  __syncthreads();
+
+  // one chunk's pixels, taps, weights, scale and bias into stage `buf`;
+  // channels past C, pixels outside the image and columns past Cout are 0
+  auto stage_chunk = [&](int buf, int kc) {
+    int8_t* Xs = sb + buf * stage;
+    int8_t* Ts = Xs + BM * T * SB_C;
+    int8_t* W8 = Ts + T * SB_C;
+    float* DSs = reinterpret_cast<float*>(W8 + SB_C * BN);
+    float* DBs = DSs + SB_C;
+    const int c0 = kc * SB_C;
+    if constexpr (VEC) {
+      for (int e = tid; e < BM * T * 2; e += SB_THREADS) {
+        const int o = off[e >> 1], c = c0 + 16 * (e & 1);
+        const bool ok = o >= 0 && c < g.C;
+        cpa::copy16(Xs + 16 * e, ok ? x + o + c : x, ok ? 16 : 0);
+      }
+      for (int e = tid; e < T * 2; e += SB_THREADS) {
+        const int t = e >> 1, c = c0 + 16 * (e & 1);
+        const bool ok = c < g.C;
+        cpa::copy16(Ts + 16 * e, ok ? wd + t * g.C + c : wd, ok ? 16 : 0);
+      }
+      const int per = BN / wq;
+      for (int e = tid; e < SB_C * per; e += SB_THREADS) {
+        const int cc = e / per, j = e - cc * per;
+        const int c = c0 + cc, n = n0 + j * wq;
+        const bool ok = c < g.C && n < Cout;
+        const int8_t* src = ok ? wp + (size_t)c * Cout + n : wp;
+        int8_t* dst = W8 + cc * BN + j * wq;
+        if (wq == 16)
+          cpa::copy16(dst, src, ok ? 16 : 0);
+        else if (wq == 8)
+          cpa::copy8(dst, src, ok ? 8 : 0);
+        else
+          cpa::copy4(dst, src, ok ? 4 : 0);
+      }
+      for (int e = tid; e < SB_C / 2; e += SB_THREADS) {
+        const int j = e % (SB_C / 4), c = c0 + 4 * j;
+        const float* src = e < SB_C / 4 ? ds : db;
+        float* dst = (e < SB_C / 4 ? DSs : DBs) + 4 * j;
+        const bool ok = c < g.C;
+        cpa::copy16(dst, ok ? src + c : src, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < BM * T * SB_C; e += SB_THREADS) {
+        const int o = off[e / SB_C], c = c0 + e % SB_C;
+        Xs[e] = o >= 0 && c < g.C ? x[o + c] : 0;
+      }
+      for (int e = tid; e < T * SB_C; e += SB_THREADS) {
+        const int t = e / SB_C, c = c0 + e % SB_C;
+        Ts[e] = c < g.C ? wd[t * g.C + c] : 0;
+      }
+      for (int e = tid; e < SB_C * BN; e += SB_THREADS) {
+        const int c = c0 + e / BN, n = n0 + e % BN;
+        W8[e] = c < g.C && n < Cout ? wp[(size_t)c * Cout + n] : 0;
+      }
+      for (int e = tid; e < SB_C; e += SB_THREADS) {
+        DSs[e] = c0 + e < g.C ? ds[c0 + e] : 0.0f;
+        DBs[e] = c0 + e < g.C ? db[c0 + e] : 0.0f;
+      }
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  if (k_begin < k_end) {
+    stage_chunk(0, k_begin);
+    cpa::commit();
+  }
+  for (int kc = k_begin; kc < k_end; ++kc) {
+    const int buf = (kc - k_begin) & 1;
+    // the next chunk's copies go out under this chunk's work
+    if (kc + 1 < k_end) {
+      stage_chunk(buf ^ 1, kc + 1);
+      cpa::commit();
+      cpa::wait<1>();
+    } else {
+      cpa::wait<0>();
+    }
+    __syncthreads();
+    {
+      const int8_t* Xs = sb + buf * stage;
+      const int8_t* Ts = Xs + BM * T * SB_C;
+      const int8_t* W8 = Ts + T * SB_C;
+      const float* DSs = reinterpret_cast<const float*>(W8 + SB_C * BN);
+      const float* DBs = DSs + SB_C;
+      // the depthwise tile, int32 and exact: channel quad q of pixels p,
+      // every tap from shared memory with no bounds test, then its f32
+      // epilogue and act into Ds
+      const int q = tid % (SB_C / 4);
+      for (int p = tid / (SB_C / 4); p < BM; p += SB_THREADS / (SB_C / 4)) {
+        int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+        const int8_t* xp = Xs + p * T * SB_C + 4 * q;
+#pragma unroll 9
+        for (int t = 0; t < T; ++t) {
+          const char4 xv = *reinterpret_cast<const char4*>(xp + t * SB_C);
+          const char4 wv =
+              *reinterpret_cast<const char4*>(Ts + t * SB_C + 4 * q);
+          a0 += (int)xv.x * (int)wv.x;
+          a1 += (int)xv.y * (int)wv.y;
+          a2 += (int)xv.z * (int)wv.z;
+          a3 += (int)xv.w * (int)wv.w;
+        }
+        const int a[4] = {a0, a1, a2, a3};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int cc = 4 * q + j;
+          Ds[cc * (BM + 1) + p] =
+              kc * SB_C + cc < g.C
+                  ? marvel::epilogue((float)a[j], DSs[cc], DBs[cc], nullptr,
+                                     0, dw_act)
+                  : 0.0f;
+        }
+      }
+      for (int e = tid; e < SB_C * BN; e += SB_THREADS) Wf[e] = (float)W8[e];
+    }
+    __syncthreads();
+    // the pointwise contraction, f32 FMAs in channel order
+#pragma unroll 8
+    for (int cc = 0; cc < SB_C; ++cc) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = Ds[cc * (BM + 1) + ty + GY * i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = Wf[cc * BN + tx + GX * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+
+  if (splits > 1) {
+    // split-C in this launch: every slice writes its partial tile; after
+    // the block's barrier one thread counts it in with an acq_rel atomic;
+    // the block that counts last sums the slices in order 0..splits-1,
+    // its own from registers, NB slices' loads in flight at a time, and
+    // puts the counter back to 0
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    float* part = ws + (size_t)tile * splits * (BM * BN);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        __stcg(part + (size_t)z * (BM * BN) + (ty + GY * i) * BN + tx +
+                   GX * j,
+               acc[i][j]);
+    __syncthreads();
+    if (tid == 0) {
+      int prev;
+      asm volatile("atom.acq_rel.gpu.add.s32 %0, [%1], 1;\n"
+                   : "=r"(prev)
+                   : "l"(counters + tile)
+                   : "memory");
+      last = prev == splits - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    constexpr int NB = TM * TN >= 32 ? 1 : 32 / (TM * TN);
+    float sum[TM][TN];
+    for (int s0 = 0; s0 < splits; s0 += NB) {
+      float v[NB][TM][TN];
+#pragma unroll
+      for (int u = 0; u < NB; ++u)
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            if (s0 + u < splits && s0 + u != z)
+              v[u][i][j] = __ldcg(part + (size_t)(s0 + u) * (BM * BN) +
+                                  (ty + GY * i) * BN + tx + GX * j);
+#pragma unroll
+      for (int u = 0; u < NB; ++u) {
+        const int sl = s0 + u;
+        if (sl >= splits) break;
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const float val = sl == z ? acc[i][j] : v[u][i][j];
+            sum[i][j] = sl == 0 ? val : __fadd_rn(sum[i][j], val);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = sum[i][j];
+    if (tid == 0) counters[tile] = 0;  // ready for the next launch
+  }
+
+  // the pointwise epilogue, once, and the one write of the output
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + GY * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx + GX * j;
+      if (n < Cout)
+        out[(size_t)m * Cout + n] =
+            marvel::epilogue(acc[i][j], pss[j], pbs[j], nullptr, 0, pw_act);
+    }
+  }
+}
+
+template <int BM, int BN, bool VEC>
+int launch_sep(const int8_t* x, const int8_t* wd, const float* ds,
+               const float* db, const int8_t* wp, const float* ps,
+               const float* pb, float* out, float* ws, int* counters,
+               DwGeom g, int Cout, int wq, int splits, int cps, int dw_act,
+               int pw_act, cudaStream_t s) {
+  auto kern = sep_block_kernel<BM, BN, VEC>;
+  const int smem = sb_smem(BM, BN, g.KH * g.KW);
+  if (smem > 48 * 1024) {
+    const int err = (int)cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+  }
+  const int M = g.N * g.Ho * g.Wo;
+  dim3 grid((Cout + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  kern<<<grid, SB_THREADS, smem, s>>>(x, wd, ds, db, wp, ps, pb, out, ws,
+                                      counters, g, Cout, wq, cps, dw_act,
+                                      pw_act);
   return (int)cudaGetLastError();
 }
 
@@ -465,39 +619,57 @@ extern "C" int marvel_depthwise_conv(const int8_t* x, const int8_t* w,
 }
 
 // x (N, H, W, C) int8, wd (KH, KW, C) int8, ds/db (C,) f32, wp (C, Cout)
-// int8, ps/pb (Cout,) f32 -> out (N, Ho, Wo, Cout) f32.  splits > 1 needs
-// ws: a (splits, N*Ho*Wo, Cout) f32 workspace; c_per_split is a multiple of
-// 32 with splits * c_per_split >= C.
+// int8, ps/pb (Cout,) f32 -> out (N, Ho, Wo, Cout) f32, in tiles of bm
+// pixels x bn output channels (kernels/depthwise_conv.py::SEP_TILES; 64 x
+// 64 where vec is 0) and `splits` slices of cps chunks of 32 channels,
+// none empty.  vec: C % 16 == 0, Cout % 4 == 0, x, wd, ds and db 16-byte
+// and wp 4-byte aligned.  splits > 1 needs ws, (tiles, splits, bm, bn)
+// f32, and counters, one int32 a tile, zero before and after the launch;
+// launches that share them must be ordered on one stream.
 extern "C" int marvel_sep_block(const int8_t* x, const int8_t* wd,
                                 const float* ds, const float* db,
                                 const int8_t* wp, const float* ps,
-                                const float* pb, float* out, float* ws, int N,
-                                int H, int W, int C, int KH, int KW, int Ho,
-                                int Wo, int stride, int top, int left,
-                                int Cout, int splits, int c_per_split,
-                                int dw_act, int pw_act, void* stream) {
+                                const float* pb, float* out, float* ws,
+                                int* counters, int N, int H, int W, int C,
+                                int KH, int KW, int Ho, int Wo, int stride,
+                                int top, int left, int Cout, int bm, int bn,
+                                int vec, int splits, int cps, int dw_act,
+                                int pw_act, void* stream) {
   DwGeom g{N, H, W, C, KH, KW, Ho, Wo, stride, top, left};
   cudaStream_t s = (cudaStream_t)stream;
-  const int M = N * Ho * Wo;
-  const int vec4 = C % 4 == 0 && ((uintptr_t)x & 3) == 0 &&
-                   ((uintptr_t)wd & 3) == 0;
-  if (splits < 1) splits = 1;
-  float* part = splits > 1 ? ws : nullptr;
-  const int per = splits > 1 ? c_per_split : C;
-  dim3 grid((Cout + SB_N - 1) / SB_N, (M + SB_M - 1) / SB_M, splits);
-  if (KH == 3 && KW == 3)
-    sep_block_kernel<3><<<grid, SB_THREADS, 0, s>>>(
-        x, wd, ds, db, wp, ps, pb, out, part, g, Cout, per, dw_act, pw_act,
-        vec4);
-  else
-    sep_block_kernel<0><<<grid, SB_THREADS, 0, s>>>(
-        x, wd, ds, db, wp, ps, pb, out, part, g, Cout, per, dw_act, pw_act,
-        vec4);
-  int err = (int)cudaGetLastError();
-  if (err != 0 || splits <= 1) return err;
-  const size_t total = (size_t)M * Cout;
-  const unsigned blocks = (unsigned)((total + 255) / 256);
-  sep_splitc_kernel<<<blocks, 256, 0, s>>>(ws, splits, ps, pb, out, M, Cout,
-                                           pw_act);
-  return (int)cudaGetLastError();
+  const int chunks = (C + SB_C - 1) / SB_C;
+  if (splits < 1 || cps < 1 || (splits - 1) * cps >= chunks ||
+      splits * cps < chunks || (splits > 1 && (!ws || !counters)))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)N * Ho * Wo == 0 || Cout == 0) return 0;
+  auto aligned = [](const void* p, int a) {
+    return ((uintptr_t)p & (a - 1)) == 0;
+  };
+  if (!vec) {
+    if (bm != 64 || bn != 64) return (int)cudaErrorInvalidValue;
+    return launch_sep<64, 64, false>(x, wd, ds, db, wp, ps, pb, out, ws,
+                                     counters, g, Cout, 1, splits, cps,
+                                     dw_act, pw_act, s);
+  }
+  if (C % 16 || Cout % 4 || !aligned(x, 16) || !aligned(wd, 16) ||
+      !aligned(ds, 16) || !aligned(db, 16) || !aligned(wp, 4))
+    return (int)cudaErrorInvalidValue;
+  const int wq = Cout % 16 == 0 && aligned(wp, 16) ? 16
+                 : Cout % 8 == 0 && aligned(wp, 8) ? 8 : 4;
+#define SEP_TILE(BM_, BN_)                                                  \
+  if (bm == BM_ && bn == BN_)                                               \
+    return launch_sep<BM_, BN_, true>(x, wd, ds, db, wp, ps, pb, out, ws,   \
+                                      counters, g, Cout, wq, splits, cps,   \
+                                      dw_act, pw_act, s);
+  SEP_TILE(32, 16)
+  SEP_TILE(32, 32)
+  SEP_TILE(32, 64)
+  SEP_TILE(32, 128)
+  SEP_TILE(64, 16)
+  SEP_TILE(64, 32)
+  SEP_TILE(64, 64)
+  SEP_TILE(128, 16)
+  SEP_TILE(128, 32)
+#undef SEP_TILE
+  return (int)cudaErrorInvalidValue;
 }

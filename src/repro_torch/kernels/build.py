@@ -38,10 +38,11 @@ SIGNATURES = {
     "marvel_windowed_pool": (_P, _P) + (_I,) * 10 + (_P,),
     "marvel_global_avgpool": (_P, _P, _I, _I, _I, _I, _P),
     "marvel_depthwise_conv": (_P,) * 5 + (_I,) * 14 + (_P,),
-    "marvel_sep_block": (_P,) * 9 + (_I,) * 16 + (_P,),
+    "marvel_sep_block": (_P,) * 10 + (_I,) * 19 + (_P,),
     "marvel_residual_rmsnorm": (_P,) * 5 + (_I, _I, _F, _I, _P),
     "marvel_flash_attention": (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _I, _P),
-    "marvel_wkv_chunk": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "marvel_wkv_chunk": (_P,) * 10 + (_I,) * 5 + (_P,),
+    "marvel_wkv_chunk_smem": (_I, _I),
     "marvel_mac_matmul_int8": (_P,) * 5 + (_I,) * 5 + (_P,),
     "marvel_wgmma_selftest": (_P, _P, _P, _I, _P),
 }

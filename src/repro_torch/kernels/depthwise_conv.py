@@ -16,9 +16,17 @@ MAC), then applies the pointwise ``(pw_scale, pw_bias)`` epilogue and act.
 
 :func:`depthwise_conv_int8` and :func:`sep_block_int8` are the wrappers: CPU
 tensors run the plain versions, CUDA tensors launch the kernels (each
-wrapper's ``launches`` counts them).
+wrapper's ``launches`` counts them).  The depthwise kernel's block geometry
+is :func:`dw_tile`'s; the separable block's tile and split of C are
+:func:`sep_plan`'s, a rule plus :data:`SEP_TUNED`, the shapes where a sweep
+on the card timed another plan faster.  A split launch sums its slices in
+the launch on the tile counters of ``matmul_epilogue._counters`` (one
+int32 buffer a device, zero between launches), so launches that share them
+must be ordered on one stream, as every launch of the port is.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -28,11 +36,27 @@ from repro_torch.kernels.common import (
     ACT_CODES, EPILOGUE_ACTS, check_operand, conv_out_size, runs_plain,
     same_pads, split_k,
 )
+from repro_torch.kernels.matmul_epilogue import _counters
 from repro_torch.kernels.ref import full_f32
 
 _INT32_MAX = 2**31 - 1
 _GRID_Y_MAX = 65535
-BM, BN, BC = 64, 64, 32  # sep_block's tile (csrc/depthwise_conv.cu)
+SEP_C = 32  # channels of a sep_block chunk (csrc/depthwise_conv.cu)
+# (pixels, output channels) of a sep_block tile the kernel is built for;
+# 64 x 64 is also the tile of its byte-loading form
+SEP_TILES = ((32, 16), (32, 32), (32, 64), (32, 128), (64, 16), (64, 32),
+             (64, 64), (128, 16), (128, 32))
+SEP_MAX_SPLITS = 8  # the most slices of C the plan's rule takes
+# (M, C, Cout) -> (tile pixels, tile output channels, slices of C) where the
+# sweep (tools/sweep_cnn_kernels.py --only sep, PERF.md) timed a plan more
+# than 3% faster than the rule's: at M <= 128 more, narrower tiles beat
+# computing each depthwise element once; the rule plans every other shape
+SEP_TUNED = {(32, 960, 160): (32, 16, 8), (32, 960, 320): (32, 32, 8),
+             (32, 1024, 1024): (32, 64, 16), (128, 384, 64): (32, 32, 12),
+             (128, 384, 96): (32, 32, 12), (128, 576, 96): (32, 32, 6),
+             (32, 576, 160): (32, 16, 6), (128, 192, 64): (32, 16, 6),
+             (8192, 32, 64): (64, 64, 1), (2048, 64, 128): (32, 64, 1)}
+SEP_SMEM_MAX = 232448  # the shared memory one block may use on the H100
 DW_COLS = 2  # output columns a depthwise thread computes side by side
 DW_SMEM_MAX = 48 * 1024  # the depthwise block's halo and taps, bytes
 DW_GROUPS = (64, 32, 16, 8, 4)  # channels a depthwise block may take
@@ -71,6 +95,57 @@ def dw_tile(n: int, ho: int, wo: int, c: int, kh: int, kw: int,
            and dw_smem(2 * th, cg, wo, kh, kw, stride) <= DW_SMEM_MAX):
         th *= 2
     return th, cg
+
+
+def sep_smem(bm: int, bn: int, taps: int) -> int:
+    """Shared memory of a sep_block block (``sb_smem`` in
+    csrc/depthwise_conv.cu): two stages of a chunk's copies (its (pixel,
+    tap) vectors, the taps, the weights' rows, the depthwise scale and
+    bias), the f32 depthwise tile, the f32 weights and the (pixel, tap)
+    offsets."""
+    stage = bm * taps * SEP_C + taps * SEP_C + SEP_C * bn + 2 * SEP_C * 4
+    return 2 * stage + SEP_C * (bm + 1) * 4 + SEP_C * bn * 4 + bm * taps * 4
+
+
+def sep_plan(m: int, c: int, cout: int, sms: int, vec: bool = True):
+    """(tile pixels, tile output channels, slices of C, chunks a slice) of
+    a sep_block launch: :data:`SEP_TUNED`'s where the sweep timed this
+    shape, else the rule's.  The rule: the tile takes all of Cout up to
+    128 (else 64 at a time), so each depthwise element is computed once,
+    and the tallest of 128, 64, 32 pixels whose tiles still fill the SMs
+    (32 if none does); where the tiles do not fill them, C splits into at
+    most :data:`SEP_MAX_SPLITS` slices of whole 32-channel chunks for
+    about two blocks an SM.  Slices are never empty, and a launch splits
+    only where :func:`~repro_torch.kernels.common.split_k` splits its grid
+    (fewer tiles than SMs, so every split launch has tile counters; a
+    policy that never splits keeps every launch in one slice).  The
+    byte-loading form (``vec`` False) takes 64 x 64 tiles.  Cached per
+    shape and split policy."""
+    return _sep_plan(m, c, cout, sms, vec, split_k)
+
+
+@functools.lru_cache(maxsize=4096)
+def _sep_plan(m, c, cout, sms, vec, split_k):
+    chunks = -(-c // SEP_C)
+    tuned = SEP_TUNED.get((m, c, cout)) if vec else None
+    if tuned is not None:
+        bm, bn, want = tuned
+        tiles = -(-m // bm) * -(-cout // bn)
+        if want == 1 or split_k(tiles, 4 * chunks, sms) > 1:
+            splits = -(-chunks // -(-chunks // want))
+            return bm, bn, splits, -(-chunks // splits)
+    if vec:
+        bn = next((b for b in (16, 32, 64, 128) if b >= cout), 64)
+        bm = next((b for b in (128, 64) if (b, bn) in SEP_TILES
+                   and -(-m // b) * -(-cout // bn) >= sms), 32)
+    else:
+        bm, bn = 64, 64
+    tiles = -(-m // bm) * -(-cout // bn)
+    splits = 1
+    if split_k(tiles, 4 * chunks, sms) > 1:
+        want = min(SEP_MAX_SPLITS, chunks, -(-2 * sms // tiles))
+        splits = -(-chunks // -(-chunks // want))
+    return bm, bn, splits, -(-chunks // splits)
 
 
 def _geometry(x_int8, w_taps, stride, padding):
@@ -163,6 +238,10 @@ def _launch_dw(x_int8, w_int8, eff_scale, eff_bias, stride, padding, act):
     return out
 
 
+def _aligned(t, n):
+    return t.data_ptr() % n == 0
+
+
 def _launch_sep(x_int8, w_dw_int8, dw_scale, dw_bias, w_pw_int8, pw_scale,
                 pw_bias, stride, padding, dw_act, pw_act):
     n, h, w_in, c = x_int8.shape
@@ -172,8 +251,6 @@ def _launch_sep(x_int8, w_dw_int8, dw_scale, dw_bias, w_pw_int8, pw_scale,
                                             padding)
     m = n * ho * wo
     _check_sizes(x_int8.numel(), m * cout, w_pw_int8.numel())
-    if -(-m // BM) > _GRID_Y_MAX:
-        raise ValueError(f"{m} output pixels exceed the kernel's grid")
     x_int8 = x_int8.contiguous()
     wd, wp = w_dw_int8.contiguous(), w_pw_int8.contiguous()
     ds, db = dw_scale.float().contiguous(), dw_bias.float().contiguous()
@@ -185,21 +262,36 @@ def _launch_sep(x_int8, w_dw_int8, dw_scale, dw_bias, w_pw_int8, pw_scale,
     check_operand(wp, "w_pw_int8", torch.int8, (c, cout))
     check_operand(ps, "pw_scale", torch.float32, (cout,))
     check_operand(pb, "pw_bias", torch.float32, (cout,))
+    vec = (c % 16 == 0 and cout % 4 == 0 and _aligned(wp, 4)
+           and all(_aligned(t, 16) for t in (x_int8, wd, ds, db)))
+    bm, bn, splits, per = sep_plan(m, c, cout, build.sm_count(x_int8.device),
+                                   vec)
+    if sep_smem(bm, bn, kh * kw) > SEP_SMEM_MAX:
+        raise ValueError(f"a {kh}x{kw} separable block's tile needs "
+                         f"{sep_smem(bm, bn, kh * kw)} bytes of shared "
+                         f"memory, over the block's {SEP_SMEM_MAX}")
+    if -(-m // bm) > _GRID_Y_MAX:
+        raise ValueError(f"{m} output pixels exceed the kernel's grid")
     out = torch.empty((n, ho, wo, cout), dtype=torch.float32,
                       device=x_int8.device)
-    c_iters = -(-c // BC)
-    splits = split_k(-(-m // BM) * -(-cout // BN), c_iters,
-                     build.sm_count(x_int8.device))
-    per = -(-c_iters // splits) * BC
-    ws = (torch.empty((splits, m, cout), dtype=torch.float32,
-                      device=x_int8.device) if splits > 1 else None)
+    tiles = -(-m // bm) * -(-cout // bn)
+    ws = counters = None
+    if splits > 1:
+        counters = _counters(x_int8.device)
+        if tiles > counters.numel():
+            raise ValueError(f"{tiles} tiles exceed the {counters.numel()} "
+                             f"tile counters")
+        ws = torch.empty((tiles, splits, bm, bn), dtype=torch.float32,
+                         device=x_int8.device)
     with torch.cuda.device(x_int8.device):
         status = build.lib().marvel_sep_block(
             x_int8.data_ptr(), wd.data_ptr(), ds.data_ptr(), db.data_ptr(),
             wp.data_ptr(), ps.data_ptr(), pb.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), n, h, w_in, c, kh, kw,
-            ho, wo, stride, top, left, cout, splits, per, ACT_CODES[dw_act],
-            ACT_CODES[pw_act], build.stream_ptr(x_int8.device))
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), n, h, w_in,
+            c, kh, kw, ho, wo, stride, top, left, cout, bm, bn, int(vec),
+            splits, per, ACT_CODES[dw_act], ACT_CODES[pw_act],
+            build.stream_ptr(x_int8.device))
     build.check("sep_block", status)
     return out
 

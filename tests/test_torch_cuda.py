@@ -8,8 +8,10 @@ of the shared conformance grid's (``kernel_cases.GRID``), plus the stem's
 Cin = 3 and a Cin % 4 == 0 conv with a residual, so both gather paths of the
 conv kernel run; the depthwise and separable-block cases cover C not a
 multiple of 4 (byte loads) and of the 32-channel chunk, stride 2 with SAME
-and VALID, each act, Cout not a multiple of the 64-channel tile, and the
-split over C of MobileNet's late blocks.  Inputs are made with numpy from a
+and VALID, each act, Cout not a multiple of the 64-channel tile, the
+split over C of MobileNet's late blocks (MobileNetV2's last at batch 8,
+whose two launches give the same bits) and its first block's shape at
+batch 2.  Inputs are made with numpy from a
 seed.  Tolerances as in ``test_torch_kernels.py`` (the depthwise sums are
 exact, the separable block's f32 contraction over C gets
 ``tol_from_acc(float32, C)``); TF32 is off for the plain versions, and a v0
@@ -43,10 +45,14 @@ take the CUDA-core form; bf16 flash attention at d in {64, 128}, G in {1,
 The rnn_lm kernels: ``mac_matmul_int8`` on the grid's three cases, a
 skinny ragged one and rwkv6-1.6b's GEMM shapes, equal to its plain version
 (exact int32 sums); ``wkv_chunk`` on the grid's three cases, the smoke
-model's and rwkv6-1.6b's head sizes and a decay strong enough that
-``exp(-cum)`` would overflow, within ``tol_from_acc(float32, S)`` with the
-conformance runner's slack of 8; a ragged S and a working set over the
-block's shared memory are refused, not run plain.
+model's and rwkv6-1.6b's head sizes, a decay strong enough that
+``exp(-cum)`` would overflow, and rwkv6-1.6b's prefill at B = 1 (S = 512,
+32 heads, 8 chunks of 64), within ``tol_from_acc(float32, S)`` with the
+conformance runner's slack of 8; two launches of that prefill give the
+same bits and leave the chain's ticket and flags 0; the kernel's shared
+memory equals ``smem_bytes``; a ragged S, a head size it is not built for
+and a working set over the block's shared memory are refused, not run
+plain.
 """
 import numpy as np
 import pytest
@@ -112,6 +118,11 @@ SEP_CASES = [
     dict(c=960, cout=320, h=2, w_sp=2, dw_act="relu6", pw_act="none"),
     dict(c=1024, cout=1024, h=4, w_sp=4, stride=2, dw_act="relu",
          pw_act="relu"),
+    # MobileNetV2 v4's last block (M = 32 at batch 8, a split over C) and
+    # its first (M = 8192 at batch 8; here M = 2048 at batch 2)
+    dict(c=960, cout=320, h=2, w_sp=2, batch=8, dw_act="relu6",
+         pw_act="none"),
+    dict(c=32, cout=16, h=32, w_sp=32, dw_act="relu6", pw_act="none"),
 ]
 
 
@@ -229,26 +240,50 @@ def test_depthwise_kernel_matches_plain(card, case):
 def test_sep_block_kernel_matches_plain(card, case):
     from repro_torch.kernels import depthwise_conv as dw
 
+    args, kw = _sep_args(case)
+    before = dw.sep_block_int8.launches
+    got = dw.sep_block_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert dw.sep_block_int8.launches == before + 1
+    want = dw.sep_block_int8_plain(*args, **kw)
+    t = max(max(32, args[0].shape[-1]) * float(np.finfo(np.float32).eps) * 8,
+            1e-5)
+    torch.testing.assert_close(got, want, rtol=t, atol=t)  # tol_from_acc
+
+
+def test_sep_block_split_launches_give_the_same_bits(card):
+    """Split-C summed in one launch, the slices in order: two launches of
+    MobileNetV2's last block at batch 8 (8 slices of C) give the same
+    bits."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import depthwise_conv as dw
+
+    args, kw = _sep_args(SEP_CASES[-2])
+    m, c, cout = 32, 960, 320
+    assert dw.sep_plan(m, c, cout, build.sm_count(card))[2] > 1
+    first = dw.sep_block_int8(*args, **kw)
+    again = dw.sep_block_int8(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+def _sep_args(case):
     c = dict(seed=0, h=13, w_sp=11, c=5, cout=9, stride=1, padding="SAME",
-             dw_act="relu", pw_act="none") | case
+             dw_act="relu", pw_act="none", batch=2) | case
     r = _rng(c["seed"])
-    x = r.integers(-127, 128, (2, c["h"], c["w_sp"], c["c"]), np.int8)
+    x = r.integers(-127, 128, (c["batch"], c["h"], c["w_sp"], c["c"]),
+                   np.int8)
     wd = r.integers(-127, 128, (3, 3, c["c"]), np.int8)
     ds = (r.random(c["c"]) * 1e-5).astype(np.float32)
     db = r.standard_normal(c["c"]).astype(np.float32)
     wp = r.integers(-127, 128, (c["c"], c["cout"]), np.int8)
     ps = (r.random(c["cout"]) * 1e-3).astype(np.float32)
     pb = r.standard_normal(c["cout"]).astype(np.float32)
-    args = [torch.from_numpy(a).to(card) for a in (x, wd, ds, db, wp, ps, pb)]
+    args = [torch.from_numpy(a).to("cuda")
+            for a in (x, wd, ds, db, wp, ps, pb)]
     kw = dict(stride=c["stride"], padding=c["padding"], dw_act=c["dw_act"],
               pw_act=c["pw_act"])
-    before = dw.sep_block_int8.launches
-    got = dw.sep_block_int8(*args, **kw)
-    torch.cuda.synchronize()
-    assert dw.sep_block_int8.launches == before + 1
-    want = dw.sep_block_int8_plain(*args, **kw)
-    t = max(max(32, c["c"]) * float(np.finfo(np.float32).eps) * 8, 1e-5)
-    torch.testing.assert_close(got, want, rtol=t, atol=t)  # tol_from_acc
+    return args, kw
 
 
 # ---------------------------------------------------------------------------
@@ -696,6 +731,8 @@ WKV_CASES = [
     dict(s=128, heads=4, n=64, chunk=64),  # rwkv6's heads
     # strong decay: exp(-cum) over a chunk would overflow f32
     dict(b=2, s=128, heads=8, n=64, chunk=64, decay=2.0),
+    # rwkv6-1.6b's prefill at B = 1: 32 heads of 64, 8 chunks of 64
+    dict(s=512, heads=32, n=64, chunk=64),
 ]
 
 
@@ -707,17 +744,7 @@ def test_wkv_chunk_kernel_matches_plain(card, case):
     from repro_torch.kernels import wkv_chunk as wk
     from repro_torch.kernels.ref import wkv_chunk_ref
 
-    c = dict(b=1, s=32, heads=2, n=8, chunk=16, decay=0.0) | case
-    r = _rng(0)
-    shape = (c["b"], c["s"], c["heads"], c["n"])
-    rr, kk, vv = (torch.from_numpy(0.3 * r.standard_normal(shape, np.float32))
-                  for _ in range(3))
-    lw = -torch.from_numpy(np.exp(0.3 * r.standard_normal(shape, np.float32)
-                                  + c["decay"]))
-    u = torch.from_numpy(0.3 * r.standard_normal(shape[2:], np.float32))
-    s0 = torch.from_numpy(0.3 * r.standard_normal(
-        (c["b"], c["heads"], c["n"], c["n"]), np.float32))
-    args = [a.to(card) for a in (rr, kk, vv, lw, u, s0)]
+    args, c = _wkv_args(case)
     before = wk.wkv_chunk.launches
     got, got_s = wk.wkv_chunk(*args, chunk=c["chunk"])
     torch.cuda.synchronize()
@@ -730,9 +757,51 @@ def test_wkv_chunk_kernel_matches_plain(card, case):
     torch.testing.assert_close(got_s, want_s, **tol)
 
 
+def test_wkv_chunk_launches_give_the_same_bits(card):
+    """The chunks chained through published states: two launches of the
+    rwkv6-1.6b prefill head shape give the same bits, and the chain's
+    ticket and flags are zero after each."""
+    from repro_torch.kernels import wkv_chunk as wk
+
+    args, c = _wkv_args(WKV_CASES[-1])
+    first = wk.wkv_chunk(*args, chunk=c["chunk"])
+    again = wk.wkv_chunk(*args, chunk=c["chunk"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert not wk._sync(card, 1).any()
+
+
+def test_wkv_chunk_shared_memory_matches_the_kernel(card):
+    """``smem_bytes`` mirrors the kernel's layout for every shape it
+    takes, and the kernel reports 0 for the shapes it does not."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import wkv_chunk as wk
+
+    lib = build.lib()
+    for n in (4, 8, 16, 32, 64, 128):
+        for chunk in (4, 8, 12, 16, 48, 64, 128, 256, 1024):
+            want = wk.smem_bytes(n, chunk) if wk.kernel_takes(n, chunk) else 0
+            assert lib.marvel_wkv_chunk_smem(n, chunk) == want, (n, chunk)
+
+
+def _wkv_args(case):
+    c = dict(b=1, s=32, heads=2, n=8, chunk=16, decay=0.0) | case
+    r = _rng(0)
+    shape = (c["b"], c["s"], c["heads"], c["n"])
+    rr, kk, vv = (torch.from_numpy(0.3 * r.standard_normal(shape, np.float32))
+                  for _ in range(3))
+    lw = -torch.from_numpy(np.exp(0.3 * r.standard_normal(shape, np.float32)
+                                  + c["decay"]))
+    u = torch.from_numpy(0.3 * r.standard_normal(shape[2:], np.float32))
+    s0 = torch.from_numpy(0.3 * r.standard_normal(
+        (c["b"], c["heads"], c["n"], c["n"]), np.float32))
+    return [a.to("cuda") for a in (rr, kk, vv, lw, u, s0)], c
+
+
 def test_wkv_chunk_refuses_what_the_kernel_cannot_run(card):
-    """A ragged S and a head size whose working set exceeds a block's
-    shared memory raise on the card; neither runs the plain version."""
+    """A ragged S, a head size the kernel is not built for, and a chunk
+    whose working set exceeds a block's shared memory raise on the card;
+    none runs the plain version."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import wkv_chunk as wk
 
@@ -744,6 +813,8 @@ def test_wkv_chunk_refuses_what_the_kernel_cannot_run(card):
     before = wk.wkv_chunk.launches
     with pytest.raises(ValueError, match="multiple of chunk"):
         ops._cuda_wkv_chunk(*args(100, 64), 64)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="outside the kernel's shapes"):
         ops._cuda_wkv_chunk(*args(128, 128), 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops._cuda_wkv_chunk(*args(256, 16), 256)
     assert wk.wkv_chunk.launches == before

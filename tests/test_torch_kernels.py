@@ -413,6 +413,82 @@ def test_depthwise_tile_geometry(model):
             assert n * -(-c // cg) * -(-ho // th) >= 132, (h, c, stride)
 
 
+@functools.lru_cache(maxsize=None)
+def _sep_launches(model):
+    """(M, C, Cout, taps, stride) of every separable-block launch of a
+    full-width mobile net's batch-8 forward at v4, recorded over fake
+    tensors (the ``sep_block`` site's x, depthwise and pointwise weights)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core import dispatch
+    from repro_torch.models.cnn import get_cnn
+
+    init, apply, in_shape = get_cnn(model)
+    seen, inner = [], dispatch.call
+
+    def record(pattern, baseline, *args, **kwargs):
+        if pattern == "sep_block":
+            x, wd, wp = (tuple(a.shape) for a in args[:3])
+            stride = kwargs.get("stride", 1)
+            ho = -(-x[1] // stride)
+            wo = -(-x[2] // stride)
+            seen.append((x[0] * ho * wo, x[3], wp[-1], wd[0] * wd[1],
+                         stride))
+        return inner(pattern, baseline, *args, **kwargs)
+
+    dispatch.call = record
+    try:
+        with FakeTensorMode(allow_non_fake_inputs=True), \
+                dispatch.use_table(dispatch.EMPTY_TABLE):
+            apply(init(torch.Generator().manual_seed(0)),
+                  torch.zeros((8, *in_shape)))
+    finally:
+        dispatch.call = inner
+    return seen
+
+
+@pytest.mark.parametrize("model,launches", (("mobilenetv2", 17),
+                                            ("mobilenetv1", 13)))
+def test_sep_block_plan(model, launches):
+    """The separable block's plan at every launch of the mobile nets'
+    batch-8 forwards, at the SM counts a plan may be given: a tile the
+    kernel is built for, its grid covering M and Cout, all of Cout in one
+    tile up to 128 channels (each depthwise element computed once) unless
+    the sweep's table says otherwise; the slices of C covering its
+    32-channel chunks with none empty, at most SEP_MAX_SPLITS of them
+    (or the sweep's number), and
+    a split only where the tiles do not fill the SMs, so the tile counters
+    (one buffer a device, shared with the GEMM's fma form) cover every
+    split grid; the shared memory within a block's."""
+    sites = _sep_launches(model)
+    assert len(sites) == launches
+    for sms in (16, 66, 132, 144):
+        for m, c, cout, taps, _ in sites:
+            bm, bn, splits, per = tdw.sep_plan(m, c, cout, sms)
+            assert (bm, bn) in tdw.SEP_TILES
+            tiles_m, tiles_n = -(-m // bm), -(-cout // bn)
+            assert tiles_m * bm >= m and tiles_n * bn >= cout
+            if cout <= 128 and (m, c, cout) not in tdw.SEP_TUNED:
+                assert tiles_n == 1 and bn < 2 * max(cout, 16)
+            chunks = -(-c // tdw.SEP_C)
+            tuned = tdw.SEP_TUNED.get((m, c, cout), (0, 0, 1))[2]
+            assert 1 <= splits <= max(tdw.SEP_MAX_SPLITS, tuned)
+            assert (splits - 1) * per < chunks <= splits * per
+            if splits > 1:
+                assert tiles_m * tiles_n < sms
+                assert tiles_m * tiles_n <= tme.counter_slots(sms)
+            assert tdw.sep_smem(bm, bn, taps) <= tdw.SEP_SMEM_MAX
+    # a policy that never splits keeps every launch in one slice (how
+    # chip_smoke.py times a launch without its split)
+    policy = tdw.split_k
+    tdw.split_k = lambda tiles, k_iters, sms: 1
+    try:
+        assert all(tdw.sep_plan(m, c, cout, 132)[2] == 1
+                   for m, c, cout, _, _ in sites)
+    finally:
+        tdw.split_k = policy
+
+
 def test_gemm_form_predicate():
     """bf16 with K and N multiples of 8 and aligned bases: decode up to 16
     rows, wgmma above; anything else the CUDA-core form."""

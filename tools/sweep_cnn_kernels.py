@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Sweep the tile choices of the CNN path's two CUDA-core kernels on the
-card: the f32 GEMM's ``fma`` form (every tile of ``FMA_TILES`` at every
-split of K) and ``depthwise_conv_int8`` (bands of output rows and groups of
-channels), at every distinct shape the CNN forwards give them at batch 8.
-Every configuration is held against the plain version (the GEMM within
-``chip_smoke.gemm_hold_tol``, the depthwise sums exactly) and timed as
-``chip_smoke.py`` times a kernel, beside the configuration the wrappers
-pick and the library call (``torch.matmul``, cuDNN's depthwise conv).
+"""Sweep the tile choices of the CNN path's CUDA-core kernels on the card:
+the f32 GEMM's ``fma`` form (every tile of ``FMA_TILES`` at every split of
+K), ``depthwise_conv_int8`` (bands of output rows and groups of channels)
+and ``sep_block_int8`` (every tile of ``SEP_TILES`` at every split of C),
+at every distinct shape the CNN forwards give them at batch 8.  Every
+configuration is held against the plain version (the GEMM and the
+separable block within ``chip_smoke.gemm_hold_tol`` / ``sep_tol``, the
+depthwise sums exactly) and timed as ``chip_smoke.py`` times a kernel,
+beside the configuration the wrappers pick and the library call
+(``torch.matmul``, cuDNN's depthwise conv, for the separable block the
+unfused pair ``chip_smoke.sep_pair_ms``).
 
     python3 tools/sweep_cnn_kernels.py [--out build/sweep_cnn_kernels.json]
+                                       [--only gemm,depthwise,sep]
 
 Needs a CUDA card; prints one line per shape and writes every reading to
 the JSON file.
@@ -182,13 +186,116 @@ def sweep_dw(dev, sms):
     return rows
 
 
+def sep_shapes(model):
+    """{(x shape, Cout, stride): launches} of a batch-8 forward's separable
+    blocks at v4, recorded over fake tensors."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core import dispatch
+    from repro_torch.models.cnn import get_cnn
+
+    init, apply, in_shape = get_cnn(model)
+    counts: dict = {}
+    inner = dispatch.call
+
+    def record(pattern, baseline, *args, **kwargs):
+        if pattern == "sep_block":
+            key = (tuple(args[0].shape), args[2].shape[-1],
+                   kwargs.get("stride", 1))
+            counts[key] = counts.get(key, 0) + 1
+        return inner(pattern, baseline, *args, **kwargs)
+
+    dispatch.call = record
+    try:
+        with FakeTensorMode(allow_non_fake_inputs=True), \
+                dispatch.use_table(dispatch.EMPTY_TABLE):
+            apply(init(torch.Generator().manual_seed(0)),
+                  torch.zeros((BATCH, *in_shape)))
+    finally:
+        dispatch.call = inner
+    return counts
+
+
+def sweep_sep(dev, sms):
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import depthwise_conv as dw
+    from repro_torch.kernels import matmul_epilogue as me
+
+    shapes: dict = {}
+    for model in DW_MODELS:
+        for key, cnt in sep_shapes(model).items():
+            shapes.setdefault(key, {})[model] = cnt
+    rows = []
+    rng = np.random.default_rng(2)
+    plan = dw.sep_plan
+    try:
+        for (xs, cout, stride), users in sorted(shapes.items()):
+            n, h, w_in, c = xs
+            x = torch.from_numpy(rng.integers(-127, 128, xs, np.int8)).to(dev)
+            wd = torch.from_numpy(rng.integers(-127, 128, (3, 3, c),
+                                               np.int8)).to(dev)
+            ds = torch.from_numpy(rng.random(c, np.float32) * 1e-5).to(dev)
+            db = torch.from_numpy(rng.standard_normal(c, np.float32)).to(dev)
+            wp = torch.from_numpy(rng.integers(-127, 128, (c, cout),
+                                               np.int8)).to(dev)
+            ps = torch.from_numpy(rng.random(cout, np.float32) * 1e-3).to(dev)
+            pb = torch.from_numpy(rng.standard_normal(cout, np.float32)).to(dev)
+            args = (x, wd, ds, db, wp, ps, pb, stride, "SAME", "relu6", "none")
+            want = dw.sep_block_int8_plain(*args[:7], stride=stride,
+                                           padding="SAME", dw_act="relu6",
+                                           pw_act="none")
+            tol = cs.sep_tol(args, want)
+            m = want.numel() // cout
+            picked = plan(m, c, cout, sms)
+            chunks = -(-c // dw.SEP_C)
+            times = {}
+            for bm, bn in dw.SEP_TILES:
+                tiles = -(-m // bm) * -(-cout // bn)
+                for want_s in (1, 2, 3, 4, 6, 8, 12, 16, 32):
+                    per = -(-chunks // want_s)
+                    splits = -(-chunks // per)
+                    if splits != want_s or (splits > 1 and tiles >
+                                            me.counter_slots(sms)):
+                        continue
+                    dw.sep_plan = lambda *a, _p=(bm, bn, splits, per): _p
+                    got = dw._launch_sep(*args)
+                    err, ratio = cs.held(got, want, tol)
+                    assert ratio <= 1.0, (xs, cout, bm, bn, splits, ratio)
+                    assert torch.equal(got, dw._launch_sep(*args))
+                    times[f"{bm}x{bn}/{splits}"] = cs.time_ms(
+                        lambda: dw._launch_sep(*args), trials=3)
+            dw.sep_plan = plan
+            ms = cs.time_ms(lambda: dw._launch_sep(*args), trials=3)
+            lib = cs.sep_pair_ms(args)
+            best = min(times, key=times.get)
+            row = {"x": list(xs), "cout": cout, "stride": stride,
+                   "users": users,
+                   "picked": f"{picked[0]}x{picked[1]}/{picked[2]}",
+                   "picked_ms": ms, "best": best, "best_ms": times[best],
+                   "library_ms": lib, "times": times}
+            rows.append(row)
+            print(f"sep_block x{tuple(xs)} Cout={cout} s{stride} {users}: "
+                  f"picked {row['picked']} {ms:.4f} ms, best {best} "
+                  f"{times[best]:.4f} ms, cuDNN + torch.matmul {lib:.4f} ms",
+                  flush=True)
+    finally:
+        dw.sep_plan = plan
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "sweep_cnn_kernels.json"))
     ap.add_argument("--densenet-every", type=int, default=1,
                     help="time every n-th distinct DenseNet121 GEMM shape")
+    ap.add_argument("--only", default="gemm,depthwise,sep",
+                    help="comma-separated kernels to sweep")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -206,8 +313,13 @@ def main() -> int:
     dev = torch.device("cuda")
     build.lib()
     sms = build.sm_count(dev)
-    result = {"card": card, "gemm": sweep_gemm(dev, sms, args.densenet_every),
-              "depthwise": sweep_dw(dev, sms)}
+    result = {"card": card}
+    if "gemm" in only:
+        result["gemm"] = sweep_gemm(dev, sms, args.densenet_every)
+    if "depthwise" in only:
+        result["depthwise"] = sweep_dw(dev, sms)
+    if "sep" in only:
+        result["sep"] = sweep_sep(dev, sms)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

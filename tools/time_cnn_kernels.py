@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time the CNN path's f32 GEMM (``matmul_epilogue``, fma form) and int8
-depthwise kernels of one source tree on the card, per forward, as
-``chip_smoke.py`` times them: one recorded batch-8 forward of ResNet50,
-MobileNetV2 and DenseNet121 at v4 (the GEMM) and MobileNetV2 at v2 (the
-depthwise kernel), every launch held against its plain version, the first
-launch of each shape timed beside its library call, the times summed over
-the forward's launches.
+"""Time the CNN path's CUDA-core kernels of one source tree on the card,
+per forward, as ``chip_smoke.py`` times them: the f32 GEMM
+(``matmul_epilogue``, fma form) in one recorded batch-8 forward of
+ResNet50, MobileNetV2 and DenseNet121 at v4, the int8 depthwise kernel in
+MobileNetV2 at v2, and the fused separable block (``sep_block``) in
+MobileNetV2 and MobileNetV1 at v4; every launch held against its plain
+version, the first launch of each shape timed beside its library call, the
+times summed over the forward's launches.
 
     python3 tools/time_cnn_kernels.py [--tree DIR] [--tag NAME]
+                                      [--only KERNEL[,KERNEL]]
 
 ``--tree`` is the root of the checkout whose kernels are timed (default:
 this one), so two trees can be timed in turns in one run on one card
@@ -25,7 +27,9 @@ import sys
 FORWARDS = (("resnet50 v4", "matmul_epilogue"),
             ("mobilenetv2 v4", "matmul_epilogue"),
             ("densenet121 v4", "matmul_epilogue"),
-            ("mobilenetv2 v2", "depthwise_conv"))
+            ("mobilenetv2 v2", "depthwise_conv"),
+            ("mobilenetv2 v4", "sep_block"),
+            ("mobilenetv1 v4", "sep_block"))
 
 
 def main() -> int:
@@ -33,7 +37,10 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernels to time (default: all)")
     args = ap.parse_args()
+    only = set(filter(None, args.only.split(",")))
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, os.path.join(tree, "src"))
     sys.path.insert(0, tree)
@@ -56,6 +63,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     for label, kernel in FORWARDS:
+        if only and kernel not in only:
+            continue
         name, level = label.split()
         params, apply, shape = cs.model(name, dev)
         prog = marvel.compile(apply, torch.zeros((1, *shape), device=dev),

@@ -9,7 +9,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels of ``src/repro_torch/csrc`` (one nvcc per
-   source, in parallel, and the link);
+   source, in parallel, and the link); one int8 tensor-core tile per
+   staged column width through ``imma.cuh``'s fragment maps against the
+   exact product (``imma_selftest``);
 3a. before the script sets any TF32 flag: ResNet50 at v0 (the plain
    baselines) on the card with both TF32 flags on (cuDNN's default) must
    match the same forward on the CPU within relative L2 1e-4 and leave the
@@ -24,16 +26,21 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    timed (device time from CUDA events, median of trials after warmup, L2
    left warm) beside the one PyTorch call that computes the core op
    (``library_ms``, a yardstick the port never calls) and the bound (max
-   of bytes / 3.35 TB/s and operations / the peak rate of their type);
+   of bytes / 3.35 TB/s and operations / the peak rate of their type; a
+   forward's bound is the sum of its launches' bounds, the least time of
+   the launches run one after another, with the sums of the two terms
+   beside it);
    the f32 GEMM with its operands rounded to TF32 (planted) must be
    flagged by the unchanged per-launch hold on at least half of the 34
    GEMM launches;
 3b. the same recorded batch-8 forward for MobileNetV2 at v4 (every kernel
-   timed), MobileNetV2 at v2 (the standalone depthwise kernel timed),
-   MobileNetV1 at v4 (its separable blocks timed) and DenseNet121 at v4
-   (its pools and its 62 GEMM launches timed; each forward's GEMM total is
-   printed).  Each mobile net's separable-block total is printed on a line
-   of its own beside the unfused library pair at the same shapes
+   timed), MobileNetV2 at v2 (the standalone depthwise kernel and the 18
+   int8 convs timed), MobileNetV1 at v4 (its separable blocks timed) and
+   DenseNet121 at v4 (its pools, its 62 GEMM and its 59 int8 conv
+   launches timed; each forward's GEMM and conv totals are printed, the
+   conv's beside cuDNN's f32 conv).  Each mobile net's separable-block
+   total is printed on a line of its own beside the unfused library pair
+   at the same shapes
    (``sep_pair_ms``: cuDNN's depthwise conv in f32, then ``torch.matmul``;
    a yardstick the port never calls).  Each
    forward runs with every launch counter set to 0 just before and read
@@ -298,8 +305,15 @@ def conv_case(args, timed=True):
     nbytes = (x.numel() + w.numel() + 8 * w.shape[-1] + 4 * got.numel()
               + (0 if res is None else 4 * res.numel()))
     b = bound(nbytes, {"int8": 2 * m * w.shape[-1] * k_red})
+    tile, splits = fc.conv_plan(
+        m, w.shape[-1], k_red,
+        torch.cuda.get_device_properties(x.device).multi_processor_count,
+        w.shape[2])
     label = (f"fused_conv x{tuple(x.shape)} w{tuple(w.shape)} s{stride} "
-             f"{padding} {act}{' +res' if res is not None else ''}")
+             f"{padding} {act}{' +res' if res is not None else ''} "
+             f"(M={m} K={k_red} N={w.shape[-1]}, tile "
+             f"{fc.IMMA_TILES[tile][0]}x{fc.IMMA_TILES[tile][1]}, {splits} K "
+             f"slices)")
     tol = "rtol=atol=1e-5 (int32 sums exact)"
     if not timed:
         return untimed(label, err, tol, b)
@@ -815,9 +829,32 @@ def int_mm_yardstick(x, w, scale):
     return (lambda: torch._int_mm(xp, wp).float() * sp), (mp, kp, np_)
 
 
+def imma_selftest(dev):
+    """One 16 x BN x 64 int8 tile per staged width BN through
+    ``csrc/imma.cuh``'s layouts and fragment maps (``mma.sync`` s8): equal
+    to the exact product.  A wrong map fails silently elsewhere."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+
+    rng = np.random.default_rng(18)
+    for bn in (32, 64, 128):
+        a = torch.from_numpy(rng.integers(-128, 128, (16, 64), np.int8))
+        b = torch.from_numpy(rng.integers(-128, 128, (64, bn), np.int8))
+        out = torch.empty((16, bn), dtype=torch.int32, device=dev)
+        ad, bd = a.to(dev), b.to(dev)
+        build.check("imma_selftest", build.lib().marvel_imma_selftest(
+            ad.data_ptr(), bd.data_ptr(), out.data_ptr(), bn,
+            build.stream_ptr(dev)))
+        assert torch.equal(out.cpu(), (a.long() @ b.long()).int()), bn
+    log("imma_selftest: one int8 tensor-core tile at BN = 32, 64, 128 "
+        "equals the exact product")
+
+
 def mac_case(args, timed=True):
     import torch
     from repro_torch.kernels import mac_matmul as mm
+    from repro_torch.kernels.fused_conv import IMMA_TILES
 
     x, w, scale = args
     got = mm._launch(x, w, scale)
@@ -828,10 +865,11 @@ def mac_case(args, timed=True):
     n = w.shape[1]
     nbytes = x.numel() + w.numel() + 4 * n + 4 * m * n
     b = bound(nbytes, {"int8": 2 * m * k * n})
-    form = "skinny" if m <= mm.SKINNY_ROWS else "tiled"
-    splits, _ = mm.splits_for(m, k, n, torch.cuda.get_device_properties(
+    tile, splits = mm.mac_plan(m, n, k, torch.cuda.get_device_properties(
         x.device).multi_processor_count)
-    label = f"mac_matmul_int8 M={m} K={k} N={n} ({form}, {splits} K slices)"
+    label = (f"mac_matmul_int8 M={m} K={k} N={n} (tile "
+             f"{IMMA_TILES[tile][0]}x{IMMA_TILES[tile][1]}, {splits} K "
+             f"slices)")
     tol = "equal (exact int32 sums)"
     if not timed:
         return untimed(label, 0.0, tol, b)
@@ -1010,7 +1048,9 @@ def record_launches(prog, *x):
 def hold(recorded, names, timed, extras=None):
     """Hold every recorded launch of the ``names`` kernels (and ``extras``)
     against its plain version; with ``timed``, time the first launch of
-    each shape and sum the times over the call's launches."""
+    each shape and sum the times over the call's launches.  ``bound_ms`` is
+    the least time of the launches run one after another: the sum over them
+    of each launch's bound; ``t_bytes`` and ``t_ops`` sum its two terms."""
     extras = extras or {}
     results = {}
     for name in names:
@@ -1019,7 +1059,7 @@ def hold(recorded, names, timed, extras=None):
         rows += [(0, args, []) for args in extras.get(name, [])]
         agg = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                "library_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
-               "per_forward": sum(c for c, _, _ in rows)}
+               "bound_ms": 0.0, "per_forward": sum(c for c, _, _ in rows)}
         for cnt, args, later in rows:
             label, err, tol, ms, plain, lib, (b_ms, by, tb, to), *more = (
                 case_fn(args, timed))
@@ -1031,8 +1071,9 @@ def hold(recorded, names, timed, extras=None):
             log(f"  {label}: x{cnt}/forward max_abs_err={err:.3e} [{tol}]"
                 f"{times} bound_ms={b_ms:.5f} ({by})")
             for args2 in later:  # the same shape's other launches, untimed
-                _, e, _, _, _, _, (_, _, tb2, to2) = case_fn(args2, False)
+                _, e, _, _, _, _, (b2, _, tb2, to2) = case_fn(args2, False)
                 err = max(err, e)
+                agg["bound_ms"] += b2 - b_ms
                 agg["t_bytes"] += tb2 - tb
                 agg["t_ops"] += to2 - to
             if later:
@@ -1045,6 +1086,7 @@ def hold(recorded, names, timed, extras=None):
                 agg["library_ms"] = (
                     None if lib is None or agg["library_ms"] is None
                     else agg["library_ms"] + cnt * lib)
+            agg["bound_ms"] += cnt * b_ms
             agg["t_bytes"] += cnt * tb
             agg["t_ops"] += cnt * to
         results[name] = agg
@@ -1715,7 +1757,7 @@ def lm_phases(dev, card):
         f"{statistics.median(walls):.2f} ms wall (median of 3), of which its "
         f"kernels' device time " + ", ".join(
             f"{k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
-            f"{max(r['t_bytes'], r['t_ops']):.3f}"
+            f"{r['bound_ms']:.3f}"
             + (f", fma form {r['fma_ms']:.3f}" if "fma_ms" in r else "")
             + ")" for k, r in prefill.items()))
 
@@ -1756,7 +1798,7 @@ def lm_phases(dev, card):
     log(f"{LM_ARCH} v4 decode step, {LM_SLOTS} slots: "
         f"{statistics.median(walls):.2f} ms wall (median of 5), of which its "
         f"kernels' device time {dec_ms:.3f} ms (" + ", ".join(
-            f"{k} {r['ms']:.3f}, bound {max(r['t_bytes'], r['t_ops']):.3f}"
+            f"{k} {r['ms']:.3f}, bound {r['bound_ms']:.3f}"
             + (f", fma form {r['fma_ms']:.3f}" if "fma_ms" in r else "")
             for k, r in dec.items()) + ") on " + card)
 
@@ -2001,7 +2043,7 @@ def rwkv_phases(dev, card):
         f"{statistics.median(walls):.2f} ms wall (median of 3), of which its "
         f"kernels' device time " + ", ".join(
             f"{k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
-            f"{max(r['t_bytes'], r['t_ops']):.3f}"
+            f"{r['bound_ms']:.3f}"
             + (f", fma form {r['fma_ms']:.3f}" if "fma_ms" in r else "")
             + ")" for k, r in prefill.items()) + f" on {card}")
 
@@ -2221,6 +2263,7 @@ def main() -> int:
            else f"nvcc {build.build_seconds:.1f} s")
     log(f"kernels ready in {time.perf_counter() - t0:.1f} s ({how}) -> "
         f"{build.library_path().name}")
+    imma_selftest(dev)
 
     # 3a) the plain baselines in full f32 whatever the TF32 flags
     tf32_phase(dev)
@@ -2257,12 +2300,14 @@ def main() -> int:
     # avg launches); the logits of each against the CPU program
     progs, path_counts, mbv2_times = {}, {}, {}
     gemm_forwards = {"resnet50 v4": results["matmul_epilogue"]}
+    conv_forwards = {"resnet50 v4": results["fused_conv"]}
     for label, timed_names in (
             ("mobilenetv2 v4", ("sep_block", "matmul_epilogue", "fused_conv",
                                 "global_avgpool")),
-            ("mobilenetv2 v2", ("depthwise_conv",)),
+            ("mobilenetv2 v2", ("depthwise_conv", "fused_conv")),
             ("mobilenetv1 v4", ("sep_block",)),
-            ("densenet121 v4", ("windowed_pool", "matmul_epilogue"))):
+            ("densenet121 v4", ("windowed_pool", "matmul_epilogue",
+                                "fused_conv"))):
         name, level = label.split()
         p, a, shape = model(name, dev)
         mprog = marvel.compile(a, torch.zeros((1, *shape), device=dev),
@@ -2294,6 +2339,8 @@ def main() -> int:
                         if KERNELS[k][3] == label})
         if "matmul_epilogue" in res:
             gemm_forwards[label] = res["matmul_epilogue"]
+        if "fused_conv" in res:
+            conv_forwards[label] = res["fused_conv"]
 
     # 4) the main paths: serve through the async engine, counts from 0
     params_cpu, _, _ = model("resnet50", "cpu")
@@ -2350,7 +2397,9 @@ def main() -> int:
         return {"form": form, "forward": forward,
                 "launches": agg["per_forward"], "ms": agg["ms"],
                 "fma_ms": agg.get("fma_ms"), "plain_ms": agg["plain_ms"],
-                "bound_ms": max(agg["t_bytes"], agg["t_ops"]),
+                "bound_ms": agg["bound_ms"],
+                "bound_bytes_ms": agg["t_bytes"],
+                "bound_ops_ms": agg["t_ops"],
                 "library_ms": agg["library_ms"]}
 
     # the tensor-core forms, on the forwards that run them
@@ -2366,26 +2415,33 @@ def main() -> int:
             form_entry(f"{LM_ARCH} v4 prefill", prefill["flash_attention"],
                        "wgmma")],
     }
-    # the f32 GEMM (fma form) on each CNN forward that times it
-    cnn_forwards = {"matmul_epilogue": [
-        form_entry(f"{label} batch {BATCH}", agg, "fma")
-        for label, agg in gemm_forwards.items()]}
-    for entry in cnn_forwards["matmul_epilogue"]:
-        log(f"matmul_epilogue fma form, {entry['forward']}: "
-            f"{entry['launches']} launches, {entry['ms']:.4f} ms (torch.matmul "
-            f"{entry['library_ms']:.4f}, plain {entry['plain_ms']:.4f}, bound "
-            f"{entry['bound_ms']:.5f})")
+    # the f32 GEMM (fma form) and the int8 conv (on int8 tensor cores) on
+    # each CNN forward that times them
+    cnn_forwards = {
+        "matmul_epilogue": [form_entry(f"{label} batch {BATCH}", agg, "fma")
+                            for label, agg in gemm_forwards.items()],
+        "fused_conv": [form_entry(f"{label} batch {BATCH}", agg, "imma")
+                       for label, agg in conv_forwards.items()]}
+    for name, lib_name in (("matmul_epilogue", "torch.matmul"),
+                           ("fused_conv", "cuDNN f32")):
+        for entry in cnn_forwards[name]:
+            lib = entry["library_ms"]
+            log(f"{name} {entry['form']} form, {entry['forward']}: "
+                f"{entry['launches']} launches, {entry['ms']:.4f} ms ("
+                f"{lib_name} {'null' if lib is None else f'{lib:.4f}'}, "
+                f"plain {entry['plain_ms']:.4f}, bound "
+                f"{entry['bound_ms']:.5f})")
     kernels = []
     for name, (_, source, replaces, forward) in KERNELS.items():
         agg = results[name]
-        bound_ms = max(agg["t_bytes"], agg["t_ops"])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path_launches[name],
             "max_abs_err": agg["max_abs_err"], "ms": agg["ms"],
-            "plain_ms": agg["plain_ms"], "bound_ms": bound_ms,
+            "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
             "bound_by": "bytes" if agg["t_bytes"] >= agg["t_ops"]
             else "operations",
+            "bound_bytes_ms": agg["t_bytes"], "bound_ops_ms": agg["t_ops"],
             "library_ms": agg["library_ms"],
             "forward": f"{forward} {batches.get(forward, f'batch {BATCH}')}",
             "path": paths.get(name, "resnet50 v4 serve"),

@@ -34,7 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ctypes never truncates them to 32 bits)
 SIGNATURES = {
     "marvel_matmul_epilogue": (_P,) * 8 + (_I,) * 10 + (_P,),
-    "marvel_fused_conv": (_P,) * 7 + (_I,) * 15 + (_P,),
+    "marvel_fused_conv": (_P,) * 8 + (_I,) * 16 + (_P,),
     "marvel_windowed_pool": (_P, _P) + (_I,) * 10 + (_P,),
     "marvel_global_avgpool": (_P, _P, _I, _I, _I, _I, _P),
     "marvel_depthwise_conv": (_P,) * 5 + (_I,) * 14 + (_P,),
@@ -43,8 +43,9 @@ SIGNATURES = {
     "marvel_flash_attention": (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _I, _P),
     "marvel_wkv_chunk": (_P,) * 10 + (_I,) * 5 + (_P,),
     "marvel_wkv_chunk_smem": (_I, _I),
-    "marvel_mac_matmul_int8": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "marvel_mac_matmul_int8": (_P,) * 6 + (_I,) * 6 + (_P,),
     "marvel_wgmma_selftest": (_P, _P, _P, _I, _P),
+    "marvel_imma_selftest": (_P, _P, _P, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -5,8 +5,13 @@ card with ``PYTHONPATH=src python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py`` (that machine
 has no JAX, so this file imports nothing of it).  The cases are the shapes
 of the shared conformance grid's (``kernel_cases.GRID``), plus the stem's
-Cin = 3 and a Cin % 4 == 0 conv with a residual, so both gather paths of the
-conv kernel run; the depthwise and separable-block cases cover C not a
+Cin = 3 and a Cin % 4 == 0 conv with a residual, Cin = 24 and 20 and Cout =
+40 and 33, so every copy width of the int8 conv's patch and weight tiles
+runs, and every launch shape of the CNN path at batch 8 (the stem,
+ResNet50's 3x3 convs and projections, DenseNet121's Cout = 32 growth
+convs); two launches of a split-K conv and a split-K mac give the same
+bits and leave the tile counters 0; one int8 tensor-core tile per staged
+width (``marvel_imma_selftest``) equals the exact product; the depthwise and separable-block cases cover C not a
 multiple of 4 (byte loads) and of the 32-channel chunk, stride 2 with SAME
 and VALID, each act, Cout not a multiple of the 64-channel tile, the
 split over C of MobileNet's late blocks (MobileNetV2's last at batch 8,
@@ -43,7 +48,8 @@ take the CUDA-core form; bf16 flash attention at d in {64, 128}, G in {1,
 4}, S in {1, 63, 128, 512}, causal and full, through the wgmma form.
 
 The rnn_lm kernels: ``mac_matmul_int8`` on the grid's three cases, a
-skinny ragged one and rwkv6-1.6b's GEMM shapes, equal to its plain version
+skinny ragged one, a tiled one with K % 32 != 0 and N % 8 != 0 and
+rwkv6-1.6b's GEMM shapes, equal to its plain version
 (exact int32 sums); ``wkv_chunk`` on the grid's three cases, the smoke
 model's and rwkv6-1.6b's head sizes, a decay strong enough that
 ``exp(-cum)`` would overflow, and rwkv6-1.6b's prefill at B = 1 (S = 512,
@@ -74,6 +80,23 @@ CONV_CASES = [
          residual=True),
     # few output tiles against a long K: the split-K path
     dict(h=2, w_sp=2, cin=512, cout=512, k=3, act="relu", residual=True),
+    # 8- and 4-byte patch copies (Cin = 24, 20), 4-byte weight copies and
+    # ragged tiles (Cout = 40, M = 2 * 5 * 4), byte weight loads (Cout = 33)
+    dict(h=9, w_sp=7, cin=24, cout=40, stride=2, act="relu6"),
+    dict(h=5, w_sp=6, cin=20, cout=33, padding="VALID", act="none",
+         residual=True),
+] + [
+    # every launch shape of the CNN path at batch 8, as (M, K, N): the stem
+    # (8192, 147, 64); ResNet50's 3x3 convs (2048, 576, 64) .. (32, 4608,
+    # 512) and stride-2 projections (512, 256, 512) .. (32, 1024, 2048);
+    # DenseNet121's growth convs (2048 .. 32, 1152, 32)
+    dict(batch=8, h=64, w_sp=64, cin=3, cout=64, k=7, stride=2, act="relu"),
+    *(dict(batch=8, h=h, w_sp=h, cin=c, cout=c, act="relu", residual=True)
+      for h, c in ((16, 64), (8, 128), (4, 256), (2, 512))),
+    *(dict(batch=8, h=h, w_sp=h, cin=c, cout=2 * c, k=1, stride=2,
+           act="none") for h, c in ((16, 256), (8, 512), (4, 1024))),
+    *(dict(batch=8, h=h, w_sp=h, cin=128, cout=32, act="none")
+      for h in (16, 8, 4, 2)),
 ]
 GEMM_CASES = [
     dict(act="silu"),
@@ -141,29 +164,96 @@ def _rng(seed):
 
 @pytest.mark.parametrize("case", CONV_CASES, ids=str)
 def test_fused_conv_kernel_matches_plain(card, case):
-    from repro_torch.kernels import common
     from repro_torch.kernels import fused_conv as fc
 
-    c = dict(seed=0, h=13, w_sp=11, cin=5, cout=9, k=3, stride=1,
-             padding="SAME", act="relu", residual=False) | case
-    r = _rng(c["seed"])
-    x = r.integers(-127, 128, (2, c["h"], c["w_sp"], c["cin"]), np.int8)
-    w = r.integers(-127, 128, (c["k"], c["k"], c["cin"], c["cout"]), np.int8)
-    es = (r.random(c["cout"]) * 1e-3).astype(np.float32)
-    eb = r.standard_normal(c["cout"]).astype(np.float32)
-    ho = common.conv_out_size(c["h"], c["k"], c["stride"], c["padding"])
-    wo = common.conv_out_size(c["w_sp"], c["k"], c["stride"], c["padding"])
-    res = (r.standard_normal((2, ho, wo, c["cout"])).astype(np.float32)
-           if c["residual"] else None)
-    args = [None if a is None else torch.from_numpy(a).to(card)
-            for a in (x, w, es, eb, res)]
-    kw = dict(stride=c["stride"], padding=c["padding"], act=c["act"])
+    args, kw = _conv_args(card, case)
     before = fc.fused_conv_int8.launches
     got = fc.fused_conv_int8(*args, **kw)
     torch.cuda.synchronize()
     assert fc.fused_conv_int8.launches == before + 1
     want = fc.fused_conv_int8_plain(*args, **kw)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _conv_args(card, case):
+    from repro_torch.kernels import common
+
+    c = dict(seed=0, batch=2, h=13, w_sp=11, cin=5, cout=9, k=3, stride=1,
+             padding="SAME", act="relu", residual=False) | case
+    r = _rng(c["seed"])
+    n = c["batch"]
+    x = r.integers(-127, 128, (n, c["h"], c["w_sp"], c["cin"]), np.int8)
+    w = r.integers(-127, 128, (c["k"], c["k"], c["cin"], c["cout"]), np.int8)
+    es = (r.random(c["cout"]) * 1e-3).astype(np.float32)
+    eb = r.standard_normal(c["cout"]).astype(np.float32)
+    ho = common.conv_out_size(c["h"], c["k"], c["stride"], c["padding"])
+    wo = common.conv_out_size(c["w_sp"], c["k"], c["stride"], c["padding"])
+    res = (r.standard_normal((n, ho, wo, c["cout"])).astype(np.float32)
+           if c["residual"] else None)
+    args = [None if a is None else torch.from_numpy(a).to(card)
+            for a in (x, w, es, eb, res)]
+    return args, dict(stride=c["stride"], padding=c["padding"], act=c["act"])
+
+
+@pytest.mark.parametrize("which", ["conv", "mac"])
+def test_int8_split_launches_give_the_same_bits(card, which):
+    """Split K summed in one launch, the slices in order: two launches of
+    ResNet50's last 3x3 conv at batch 8 (M = 32, K = 4608) and of
+    rwkv6-1.6b's decode down projection (M = 8, K = 7168) give the same
+    bits, equal to the plain version, and leave the tile counters 0."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_conv as fc
+    from repro_torch.kernels import mac_matmul as mm
+    from repro_torch.kernels import matmul_epilogue as me
+
+    sms = build.sm_count(card)
+    if which == "conv":
+        args, kw = _conv_args(card, dict(batch=8, h=2, w_sp=2, cin=512,
+                                         cout=512, residual=True))
+        assert fc.conv_plan(32, 512, 4608, sms)[1] > 1
+        run = lambda: fc.fused_conv_int8(*args, **kw)  # noqa: E731
+        want = fc.fused_conv_int8_plain(*args, **kw)
+    else:
+        r = _rng(1)
+        args = [torch.from_numpy(a).to(card) for a in (
+            r.integers(-128, 128, (8, 7168), np.int8),
+            r.integers(-128, 128, (7168, 2048), np.int8),
+            (r.random(2048) * 0.02).astype(np.float32))]
+        assert mm.mac_plan(8, 2048, 7168, sms)[1] > 1
+        run = lambda: mm.mac_matmul_int8(*args)  # noqa: E731
+        want = mm.mac_matmul_int8_ref(*args)
+    first, again = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    if which == "mac":
+        assert torch.equal(first, want)
+    else:
+        torch.testing.assert_close(first, want, rtol=1e-5, atol=1e-5)
+    assert int(me._counters(card).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("bn", [32, 64, 128])
+def test_imma_tile_fragment_maps(card, bn):
+    """One 16 x BN x 64 int8 tile through csrc/imma.cuh's staged layouts
+    (the patch tile's and the weight tile's swizzles), its ldmatrix A
+    fragments, its register-built B column quads and the accumulators'
+    column map, on mma.sync s8, against the exact product of random codes
+    (-128 included).  A wrong map gives wrong numbers here and nowhere
+    as plainly."""
+    from repro_torch.kernels import build
+
+    r = _rng(bn)
+    a = torch.from_numpy(r.integers(-128, 128, (16, 64), np.int8))
+    b = torch.from_numpy(r.integers(-128, 128, (64, bn), np.int8))
+    ad, bd = a.to(card), b.to(card)
+    out = torch.empty((16, bn), dtype=torch.int32, device=card)
+    with torch.cuda.device(card):
+        status = build.lib().marvel_imma_selftest(
+            ad.data_ptr(), bd.data_ptr(), out.data_ptr(), bn,
+            build.stream_ptr(card))
+    build.check("imma_selftest", status)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), (a.long() @ b.long()).int())
 
 
 @pytest.mark.parametrize("case", GEMM_CASES, ids=str)
@@ -700,6 +790,7 @@ MAC_CASES = [
     dict(m=130, k=257, n=140), dict(m=64, k=96, n=32),
     dict(m=1, k=256, n=128),  # kernel_cases.GRID
     dict(m=5, k=130, n=131),  # skinny with ragged K and N: byte loads
+    dict(m=300, k=1001, n=77),  # K % 32 != 0, N % 8 != 0 in 128-row tiles
     # rwkv6-1.6b's GEMM shapes at 8 decode slots and at a 2048-row prefill
     dict(m=8, k=2048, n=2048), dict(m=8, k=2048, n=7168),
     dict(m=8, k=7168, n=2048), dict(m=2048, k=2048, n=7168),

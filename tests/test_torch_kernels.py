@@ -489,6 +489,92 @@ def test_sep_block_plan(model, launches):
         tdw.split_k = policy
 
 
+# the int8 conv's launches on the CNN path (batch 8, 64x64x3) as (M, K, N):
+# the stem of every CNN; ResNet50's 3x3 convs and stride-2 1x1 projections;
+# DenseNet121's 3x3 growth convs (Cout = 32)
+CONV_PATH_SHAPES = [
+    (8192, 147, 64),
+    (2048, 576, 64), (512, 1152, 128), (128, 2304, 256), (32, 4608, 512),
+    (512, 256, 512), (128, 512, 1024), (32, 1024, 2048),
+    (2048, 1152, 32), (512, 1152, 32), (128, 1152, 32), (32, 1152, 32),
+]
+# chip_smoke.MAC_CASES: the grid's three, rwkv6-1.6b's at 8 and 2048 rows
+MAC_SHAPES = [(130, 257, 140), (64, 96, 32), (1, 256, 128),
+              (8, 2048, 2048), (8, 2048, 7168), (8, 7168, 2048),
+              (2048, 2048, 7168)]
+
+
+def _check_imma_plan(tile, splits, m, k, n, sms):
+    """One int8 tensor-core plan: a tile the kernel is built for (one with
+    a byte-load patch tile where K, and so Cin, is not a multiple of 4),
+    its grid covering M and N with no empty tile, 32-wide tiles for N <=
+    32, the slices of K whole 64-deep steps covering K with none empty, a
+    split exactly where split_k splits the tile grid, and tile counters
+    for every tile of a split grid."""
+    bm, bn, wm, wn, stages = tfc.IMMA_TILES[tile]
+    if k % 4:
+        assert tile in tfc.BYTE_TILES
+    tiles_m, tiles_n = -(-m // bm), -(-n // bn)
+    assert (tiles_m - 1) * bm < m <= tiles_m * bm
+    assert (tiles_n - 1) * bn < n <= tiles_n * bn
+    if n <= 32:
+        assert bn == 32
+    k_iters = -(-k // tfc.BK)
+    per = -(-k_iters // splits) * tfc.BK
+    assert 1 <= splits <= k_iters
+    assert (splits - 1) * per < k <= splits * per
+    grid_splits = common.split_k(tiles_m * tiles_n, k_iters, sms) > 1
+    assert (splits > 1) == grid_splits
+    if splits > 1:
+        assert tiles_m * tiles_n <= tme.counter_slots(sms)
+
+
+@pytest.mark.parametrize("m,k,n", CONV_PATH_SHAPES)
+def test_conv_plan(m, k, n):
+    """conv_plan at every launch shape of the CNN path, at the SM counts a
+    plan may be given; a policy that never splits keeps the launch in one
+    slice (how chip_smoke.py times a launch without its split)."""
+    for sms in (16, 66, 132, 144):
+        _check_imma_plan(*tfc.conv_plan(m, n, k, sms), m, k, n, sms)
+    never = lambda tiles, k_iters, sms: 1  # noqa: E731
+    assert tfc._conv_plan(m, n, k, 132, never, k)[1] == 1
+
+
+@pytest.mark.parametrize("m,k,n", MAC_SHAPES)
+def test_mac_plan(m, k, n):
+    """mac_plan at every case chip_smoke.py holds and times: the same
+    checks; decode rows (M <= 16) in a 16-row tile unless the sweep's
+    table says otherwise."""
+    for sms in (16, 66, 132, 144):
+        tile, splits = tmm.mac_plan(m, n, k, sms)
+        _check_imma_plan(tile, splits, m, k, n, sms)
+        if m <= 16 and k % 4 == 0 and (m, k, n) not in tmm.MAC_TUNED:
+            assert tfc.IMMA_TILES[tile][0] == 16
+
+
+def test_imma_tiles_match_the_kernel():
+    """IMMA_TILES lists the tiles csrc/fused_conv.cu's launcher builds, in
+    the order of its tile codes, BYTE_TILES those it also builds with a
+    byte-load patch tile; the mac cases are chip_smoke.MAC_CASES."""
+    import re
+    from pathlib import Path
+
+    import chip_smoke
+
+    src = (Path(tfc.__file__).parents[1] / "csrc" / "fused_conv.cu").read_text()
+    built = re.findall(r"case (\d+): return launch_tile<Tile<([\d, ]+)>>",
+                       src)
+    assert [int(i) for i, _ in built] == list(range(len(tfc.IMMA_TILES)))
+    assert [tuple(int(v) for v in t.split(",")) for _, t in built] == list(
+        tfc.IMMA_TILES)
+    bytes_built = re.findall(
+        r"case (\d+): return launch_tile<Tile<([\d, ]+)>, true>", src)
+    assert [int(i) for i, _ in bytes_built] == list(tfc.BYTE_TILES)
+    assert [tuple(int(v) for v in t.split(",")) for _, t in bytes_built] == [
+        tfc.IMMA_TILES[i] for i in tfc.BYTE_TILES]
+    assert chip_smoke.MAC_CASES == MAC_SHAPES
+
+
 def test_gemm_form_predicate():
     """bf16 with K and N multiples of 8 and aligned bases: decode up to 16
     rows, wgmma above; anything else the CUDA-core form."""

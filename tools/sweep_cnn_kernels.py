@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Sweep the tile choices of the CNN path's CUDA-core kernels on the card:
-the f32 GEMM's ``fma`` form (every tile of ``FMA_TILES`` at every split of
-K), ``depthwise_conv_int8`` (bands of output rows and groups of channels)
-and ``sep_block_int8`` (every tile of ``SEP_TILES`` at every split of C),
-at every distinct shape the CNN forwards give them at batch 8.  Every
-configuration is held against the plain version (the GEMM and the
-separable block within ``chip_smoke.gemm_hold_tol`` / ``sep_tol``, the
-depthwise sums exactly) and timed as ``chip_smoke.py`` times a kernel,
-beside the configuration the wrappers pick and the library call
-(``torch.matmul``, cuDNN's depthwise conv, for the separable block the
-unfused pair ``chip_smoke.sep_pair_ms``).
+"""Sweep the tile choices of the CNN path's kernels on the card: the f32
+GEMM's ``fma`` form (every tile of ``FMA_TILES`` at every split of K),
+``depthwise_conv_int8`` (bands of output rows and groups of channels),
+``sep_block_int8`` (every tile of ``SEP_TILES`` at every split of C) and
+the int8 tensor-core kernel (every tile of ``fused_conv.IMMA_TILES`` at
+every split of K its plan may take), at every distinct shape the CNN
+forwards give them at batch 8 (the int8 conv: the launches of ResNet50 and
+DenseNet121 at v4 and MobileNetV2 at v2, recorded on the card;
+``mac_matmul_int8``: ``chip_smoke.MAC_CASES``).  Every configuration is
+held against the plain version (the GEMM and the separable block within
+``chip_smoke.gemm_hold_tol`` / ``sep_tol``, the int8 conv within 1e-5,
+the depthwise and mac sums exactly) and timed as ``chip_smoke.py`` times a
+kernel, beside the configuration the wrappers pick and the library call
+(``torch.matmul``, cuDNN's depthwise or f32 conv, ``torch._int_mm``, for
+the separable block the unfused pair ``chip_smoke.sep_pair_ms``).
 
     python3 tools/sweep_cnn_kernels.py [--out build/sweep_cnn_kernels.json]
-                                       [--only gemm,depthwise,sep]
+                                       [--only gemm,depthwise,sep,conv,mac]
 
 Needs a CUDA card; prints one line per shape and writes every reading to
 the JSON file.
@@ -286,13 +290,154 @@ def sweep_sep(dev, sms):
     return rows
 
 
+def imma_configs(m, n, k, sms, row):
+    """(tile, slices) pairs an int8 tensor-core plan may take at this
+    shape: every tile (those of ``BYTE_TILES`` where rows of ``row`` bytes
+    take byte loads), split exactly where ``split_k`` splits its grid, into
+    whole 64-deep steps, none empty."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels import fused_conv as fc
+
+    k_iters = max(1, -(-k // fc.BK))
+    for t, (bm, bn, *_) in enumerate(fc.IMMA_TILES):
+        if row % 4 and t not in fc.BYTE_TILES:
+            continue
+        grid = -(-m // bm) * -(-n // bn)
+        may = common.split_k(grid, k_iters, sms) > 1
+        for s in (SPLITS + (24, 32)) if may else (1,):
+            if s == 1 and may or s > k_iters:
+                continue
+            if -(-k_iters // -(-k_iters // s)) == s:
+                yield t, s
+
+
+def sweep_imma(name, cases, module, plan_attr, launch, sms, lib_ms):
+    """Time every config of ``imma_configs`` on each case ((M, N, K, bytes
+    a row of A), the launch's arguments, its users); ``launch(args,
+    check)`` runs the wrapper's launch, with ``check`` held against the
+    plain version and a second launch."""
+    import chip_smoke as cs
+
+    rows = []
+    plan = getattr(module, plan_attr)
+    try:
+        for (m, n, k, row), args, users in cases:
+            picked = (plan(m, n, k, sms, row) if plan_attr == "conv_plan"
+                      else plan(m, n, k, sms))
+            times = {}
+            for t, s in imma_configs(m, n, k, sms, row):
+                setattr(module, plan_attr, lambda *a, _p=(t, s): _p)
+                launch(args, check=True)
+                times[f"{t}/{s}"] = cs.time_ms(lambda: launch(args),
+                                               trials=3)
+            setattr(module, plan_attr, plan)
+            ms = cs.time_ms(lambda: launch(args), trials=3)
+            best = min(times, key=times.get)
+            row = {"m": m, "k": k, "n": n, "users": users,
+                   "picked": f"{picked[0]}/{picked[1]}", "picked_ms": ms,
+                   "best": best, "best_ms": times[best],
+                   "library_ms": lib_ms(args), "times": times}
+            rows.append(row)
+            print(f"{name} M={m} K={k} N={n} {users}: picked "
+                  f"{row['picked']} {ms:.4f} ms, best {best} "
+                  f"{times[best]:.4f} ms, library {row['library_ms']:.4f} "
+                  f"ms", flush=True)
+    finally:
+        setattr(module, plan_attr, plan)
+    tuned = {(r["m"], r["k"], r["n"]): tuple(map(int, r["best"].split("/")))
+             for r in rows if r["best_ms"] < 0.97 * r["picked_ms"]}
+    print(f"{name}: shapes where a plan beat the rule's by more than 3%: "
+          f"{tuned}", flush=True)
+    return rows
+
+
+def sweep_conv(dev, sms):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from repro_torch import marvel
+    from repro_torch.kernels import fused_conv as fc
+    from repro_torch.launch.serve import random_images
+
+    shapes: dict = {}
+    for label in ("resnet50 v4", "densenet121 v4", "mobilenetv2 v2"):
+        name, level = label.split()
+        params, apply, shape = cs.model(name, dev)
+        prog = marvel.compile(apply, torch.zeros((1, *shape), device=dev),
+                              params=params, level=level)
+        batch = torch.from_numpy(np.stack(random_images(
+            shape, BATCH))).to(dev)
+        rec, _, _ = cs.record_launches(prog, batch)
+        for cnt, args, _ in rec["fused_conv"].values():
+            x, w = args[0], args[1]
+            m = x.shape[0] * fc.conv_out_size(
+                x.shape[1], w.shape[0], args[5], args[6]) * fc.conv_out_size(
+                x.shape[2], w.shape[1], args[5], args[6])
+            key = (m, w.shape[-1], w.shape[0] * w.shape[1] * w.shape[2],
+                   w.shape[2])
+            entry = shapes.setdefault(key, [args, {}])
+            entry[1][label] = entry[1].get(label, 0) + cnt
+
+    def launch(args, check=False):
+        got = fc._launch(*args)
+        if check:
+            x, w, es, eb, res, stride, padding, act = args
+            want = fc.fused_conv_int8_plain(x, w, es, eb, res, stride=stride,
+                                            padding=padding, act=act)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            assert torch.equal(got, fc._launch(*args))
+        return got
+
+    def lib_ms(args):
+        x, w, _, _, _, stride, _, _ = args
+        xf = x.permute(0, 3, 1, 2).float().contiguous(
+            memory_format=torch.channels_last)
+        wf = w.permute(3, 2, 0, 1).float().contiguous(
+            memory_format=torch.channels_last)
+        return cs.time_ms(lambda: F.conv2d(xf, wf, stride=stride,
+                                           padding=w.shape[0] // 2), trials=3)
+
+    cases = [(key, args, users)
+             for key, (args, users) in sorted(shapes.items())]
+    return sweep_imma("conv", cases, fc, "conv_plan", launch, sms, lib_ms)
+
+
+def sweep_mac(dev, sms):
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import mac_matmul as mm
+
+    rng = np.random.default_rng(9)
+    cases = []
+    for m, k, n in cs.MAC_CASES:
+        x = torch.from_numpy(rng.integers(-127, 128, (m, k), np.int8)).to(dev)
+        w = torch.from_numpy(rng.integers(-127, 128, (k, n), np.int8)).to(dev)
+        sc = torch.from_numpy((rng.random(n) * 0.02).astype(np.float32)).to(
+            dev)
+        cases.append(((m, n, k, k), (x, w, sc), {"mac cases": 1}))
+
+    def launch(args, check=False):
+        got = mm._launch(*args)
+        if check:
+            assert torch.equal(got, mm.mac_matmul_int8_ref(*args))
+            assert torch.equal(got, mm._launch(*args))
+        return got
+
+    def lib_ms(args):
+        return cs.time_ms(cs.int_mm_yardstick(*args)[0], trials=3)
+
+    return sweep_imma("mac", cases, mm, "mac_plan", launch, sms, lib_ms)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "sweep_cnn_kernels.json"))
     ap.add_argument("--densenet-every", type=int, default=1,
                     help="time every n-th distinct DenseNet121 GEMM shape")
-    ap.add_argument("--only", default="gemm,depthwise,sep",
+    ap.add_argument("--only", default="gemm,depthwise,sep,conv,mac",
                     help="comma-separated kernels to sweep")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -320,6 +465,10 @@ def main() -> int:
         result["depthwise"] = sweep_dw(dev, sms)
     if "sep" in only:
         result["sep"] = sweep_sep(dev, sms)
+    if "conv" in only:
+        result["conv"] = sweep_conv(dev, sms)
+    if "mac" in only:
+        result["mac"] = sweep_mac(dev, sms)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Time the CNN path's CUDA-core kernels of one source tree on the card,
-per forward, as ``chip_smoke.py`` times them: the f32 GEMM
+"""Time the CNN path's kernels of one source tree on the card, per
+forward, as ``chip_smoke.py`` times them: the f32 GEMM
 (``matmul_epilogue``, fma form) in one recorded batch-8 forward of
 ResNet50, MobileNetV2 and DenseNet121 at v4, the int8 depthwise kernel in
-MobileNetV2 at v2, and the fused separable block (``sep_block``) in
-MobileNetV2 and MobileNetV1 at v4; every launch held against its plain
-version, the first launch of each shape timed beside its library call, the
-times summed over the forward's launches.
+MobileNetV2 at v2, the fused separable block (``sep_block``) in
+MobileNetV2 and MobileNetV1 at v4, and the int8 conv (``fused_conv``) in
+ResNet50 and DenseNet121 at v4 and MobileNetV2 at v2; every launch held
+against its plain version, the first launch of each shape timed beside its
+library call, the times summed over the forward's launches.  The bound is
+the sum over the launches of each launch's bound (the larger of its bytes
+and its operations time), with the sums of the two terms beside it.
 
     python3 tools/time_cnn_kernels.py [--tree DIR] [--tag NAME]
                                       [--only KERNEL[,KERNEL]]
@@ -29,7 +32,22 @@ FORWARDS = (("resnet50 v4", "matmul_epilogue"),
             ("densenet121 v4", "matmul_epilogue"),
             ("mobilenetv2 v2", "depthwise_conv"),
             ("mobilenetv2 v4", "sep_block"),
-            ("mobilenetv1 v4", "sep_block"))
+            ("mobilenetv1 v4", "sep_block"),
+            ("resnet50 v4", "fused_conv"),
+            ("densenet121 v4", "fused_conv"),
+            ("mobilenetv2 v2", "fused_conv"))
+
+
+def forward_bound(cs, rec, kernel):
+    """(sum of the launches' bounds, of their bytes terms, of their
+    operations terms) in ms: each shape's bound from its case function
+    (the same in every tree), times its launches."""
+    total = [0.0, 0.0, 0.0]
+    for cnt, args, _ in rec[kernel].values():
+        b_ms, _, tb, to = cs.KERNELS[kernel][0](args, False)[6]
+        for i, v in enumerate((b_ms, tb, to)):
+            total[i] += cnt * v
+    return total
 
 
 def main() -> int:
@@ -73,12 +91,13 @@ def main() -> int:
             shape, cs.BATCH))).to(dev)
         rec, counts, _ = cs.record_launches(prog, batch)
         agg = cs.hold(rec, (kernel,), timed=True)[kernel]
+        bound_ms, bytes_ms, ops_ms = forward_bound(cs, rec, kernel)
         print(json.dumps({
             "tag": args.tag, "tree": tree, "forward": label,
             "kernel": kernel, "launches": counts[kernel], "ms": agg["ms"],
             "library_ms": agg["library_ms"], "plain_ms": agg["plain_ms"],
-            "bound_ms": max(agg["t_bytes"], agg["t_ops"]), "card": card}),
-            flush=True)
+            "bound_ms": bound_ms, "bound_bytes_ms": bytes_ms,
+            "bound_ops_ms": ops_ms, "card": card}), flush=True)
     return 0
 
 

@@ -63,7 +63,8 @@ def main() -> int:
         f"prefill B={b} S={s}", "kernel": "wkv_chunk",
         "launches": counts["wkv_chunk"], "ms": agg["ms"],
         "plain_ms": agg["plain_ms"],
-        "bound_ms": max(agg["t_bytes"], agg["t_ops"]), "card": card}),
+        "bound_ms": agg.get("bound_ms", max(agg["t_bytes"], agg["t_ops"])),
+        "card": card}),
         flush=True)
     return 0
 

@@ -20,9 +20,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 3. compile ResNet50 (full width, 64x64x3, random weights from seed 0) at v4
    with ``repro_torch.marvel.compile`` and run one batch-8 forward that
    records every kernel launch's inputs; every launch, plus the extra
-   cases VGG16's 2x2/2 max pool and a conv with ``residual=``, is run
-   through the kernel and its plain version on the same inputs and
-   compared within the stated tolerance; the first launch of each shape is
+   case of a conv with ``residual=``, is run through the kernel and its
+   plain version on the same inputs and compared within the stated
+   tolerance; the first launch of each shape is
    timed (device time from CUDA events, median of trials after warmup, L2
    left warm) beside the one PyTorch call that computes the core op
    (``library_ms``, a yardstick the port never calls) and the bound (max
@@ -35,10 +35,16 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    GEMM launches;
 3b. the same recorded batch-8 forward for MobileNetV2 at v4 (every kernel
    timed), MobileNetV2 at v2 (the standalone depthwise kernel and the 18
-   int8 convs timed), MobileNetV1 at v4 (its separable blocks timed) and
-   DenseNet121 at v4 (its pools, its 62 GEMM and its 59 int8 conv
-   launches timed; each forward's GEMM and conv totals are printed, the
-   conv's beside cuDNN's f32 conv).  Each mobile net's separable-block
+   int8 convs timed), MobileNetV1 at v4 (its separable blocks and its
+   global-average pool timed), DenseNet121 at v4 (its pools, its 62 GEMM
+   and its 59 int8 conv launches timed), VGG16 at v4 (13 int8 convs, 2
+   GEMMs, its 5 max pools timed) and LeNet-5* at v4 (28x28x1: 2 int8
+   convs, 1 GEMM); each forward's GEMM, conv and pool totals are printed,
+   the conv's beside cuDNN's f32 conv, the pools' beside
+   ``F.max_pool2d`` / ``F.avg_pool2d`` on the channels-last view and
+   ``x.mean``.  Every pool launch of every recorded forward (ResNet50's
+   included) must take its vector form (``DEFAULT_FORMS``, read from the
+   wrappers' ``launches_by_form``).  Each mobile net's separable-block
    total is printed on a line of its own beside the unfused library pair
    at the same shapes
    (``sep_pair_ms``: cuDNN's depthwise conv in f32, then ``torch.matmul``;
@@ -48,8 +54,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    dispatches it.  The per-launch tolerance must flag more separable-block
    launches than the 2 the old ``8*C*eps`` tolerance did when the
    contraction runs on TF32 operands (a planted fault).  The logits of the
-   v2, MobileNetV1 and DenseNet121 forwards must match the same program on
-   the CPU within the limits of ``E2E_LIMIT`` (noise responses printed
+   v2, MobileNetV1, DenseNet121, VGG16 and LeNet-5* forwards must match
+   the same program on the CPU within the limits of ``E2E_LIMIT`` (noise
+   responses printed
    beside), and a planted dropped act in the depthwise stage must exceed
    the limit of each mobile net's forward;
 4. serve 32 ResNet50 requests through the async engine with every launch
@@ -191,7 +198,8 @@ UNIT_ROUNDOFF = {"torch.float32": 2.0**-24, "torch.bfloat16": 2.0**-8}
 # (PERF.md)
 E2E_LIMIT = {"resnet50 v4": 2e-2, "mobilenetv2 v4": 1e-1,
              "mobilenetv2 v2": 2e-1, "mobilenetv1 v4": 2e-2,
-             "densenet121 v4": 1e-2, "qwen3-8b 2-layer v4": 5e-2,
+             "densenet121 v4": 1e-2, "vgg16 v4": 6e-2, "lenet5 v4": 5e-7,
+             "qwen3-8b 2-layer v4": 5e-2,
              "rwkv6-1.6b 2-layer v4": 4e-2}
 V0_LIMIT = 1e-4  # the v0 forward on the card vs the CPU
 
@@ -926,6 +934,8 @@ PER_FORWARD = {
                        "matmul_epilogue": 1, "global_avgpool": 1},
     "densenet121 v4": {"fused_conv": 59, "matmul_epilogue": 62,
                        "windowed_pool": 4, "global_avgpool": 1},
+    "vgg16 v4": {"fused_conv": 13, "matmul_epilogue": 2, "windowed_pool": 5},
+    "lenet5 v4": {"fused_conv": 2, "matmul_epilogue": 1},
     # qwen3-8b, 36 layers: 6 GEMMs, 1 fused residual-add + norm and (prefill
     # only: decode attention takes the plain path, as in the reference) 1
     # flash attention per layer
@@ -941,8 +951,11 @@ PER_FORWARD = {
 
 # the form each launch of a kernel with forms takes, per forward: the LMs'
 # bf16 GEMMs and attention on tensor cores (wgmma; the GEMM's decode form
-# at 8 slots), every f32 launch of the CNNs on CUDA cores ("fma", where a
-# forward names none)
+# at 8 slots), every f32 launch of the CNNs on CUDA cores ("fma"), every
+# pool launch in its vector form (16-byte channel groups), where a forward
+# names none (DEFAULT_FORMS)
+DEFAULT_FORMS = {"matmul_epilogue": "fma", "flash_attention": "fma",
+                 "windowed_pool": "vector", "global_avgpool": "vector"}
 FORWARD_FORMS = {
     "qwen3-8b v4 prefill": {"matmul_epilogue": "wgmma",
                             "flash_attention": "wgmma"},
@@ -1103,19 +1116,18 @@ def check_counts(label, counts, batches=1):
 
 def check_forms(label, forms, batches=1):
     """Every launch of a kernel with forms took the form FORWARD_FORMS
-    names for this forward (the CUDA-core form where it names none)."""
+    names for this forward (DEFAULT_FORMS where it names none)."""
     want = PER_FORWARD[label]
     for k, got in forms.items():
-        form = FORWARD_FORMS.get(label, {}).get(k, "fma")
+        form = FORWARD_FORMS.get(label, {}).get(k, DEFAULT_FORMS[k])
         expect = {f: want.get(k, 0) * batches if f == form else 0
                   for f in got}
         assert got == expect, (label, k, got, expect)
 
 
 def extra_cases(dev):
-    """Cases the ResNet50 path does not emit: VGG16's 2x2/2 max pool and a
-    fused_conv with a residual operand (ResNet50 carries every residual on
-    the GEMM)."""
+    """A case no recorded forward emits: a fused_conv with a residual
+    operand (ResNet50 carries every residual on the GEMM)."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(1)
@@ -1126,9 +1138,7 @@ def extra_cases(dev):
     es = (torch.rand(128, generator=g) * 1e-4).to(dev)
     eb = torch.randn(128, generator=g).to(dev)
     res = torch.randn((BATCH, 8, 8, 128), generator=g).to(dev)
-    vgg = torch.randn((BATCH, 64, 64, 64), generator=g).to(dev)
-    return {"fused_conv": [(x, w, es, eb, res, 1, "SAME", "relu")],
-            "windowed_pool": [(vgg, 2, 2, "max")]}
+    return {"fused_conv": [(x, w, es, eb, res, 1, "SAME", "relu")]}
 
 
 def rel_l2(got, want) -> float:
@@ -1331,7 +1341,8 @@ def e2e_check(label, prog, apply, params_cpu, batch):
                               level=prog.level, backend="cuda", device="cpu")
     got = prog(batch).cpu()
     want = cpu_prog(batch.cpu())
-    assert got.shape == (BATCH, 2) and torch.isfinite(got).all()
+    assert got.shape == want.shape == (BATCH, want.shape[1])
+    assert torch.isfinite(got).all()
     rel = rel_l2(got, want)
     # the int8 path's own noise floor: on-the-fly per-tensor quantization
     # turns a 1-ulp change of an activation into a flipped int8 code now and
@@ -2294,20 +2305,24 @@ def main() -> int:
     gemm_tf32_fault_holds("resnet50 v4", recorded)
     del recorded
 
-    # 3b) the slice's forwards: every launch held against its plain version,
-    # MobileNetV2 at v4 (all its kernels timed: the slice's main path) and
-    # v2 (the depthwise kernel timed), DenseNet121's pools timed (the first
-    # avg launches); the logits of each against the CPU program
+    # 3b) the other CNN forwards: every launch held against its plain
+    # version, MobileNetV2 at v4 (all its kernels timed: the slice's main
+    # path) and v2 (the depthwise kernel timed), every pool launch timed;
+    # the logits of each against the CPU program
     progs, path_counts, mbv2_times = {}, {}, {}
     gemm_forwards = {"resnet50 v4": results["matmul_epilogue"]}
     conv_forwards = {"resnet50 v4": results["fused_conv"]}
+    pool_forwards = {k: {"resnet50 v4": results[k]}
+                     for k in ("windowed_pool", "global_avgpool")}
     for label, timed_names in (
             ("mobilenetv2 v4", ("sep_block", "matmul_epilogue", "fused_conv",
                                 "global_avgpool")),
             ("mobilenetv2 v2", ("depthwise_conv", "fused_conv")),
-            ("mobilenetv1 v4", ("sep_block",)),
-            ("densenet121 v4", ("windowed_pool", "matmul_epilogue",
-                                "fused_conv"))):
+            ("mobilenetv1 v4", ("sep_block", "global_avgpool")),
+            ("densenet121 v4", ("windowed_pool", "global_avgpool",
+                                "matmul_epilogue", "fused_conv")),
+            ("vgg16 v4", ("windowed_pool",)),
+            ("lenet5 v4", ())):
         name, level = label.split()
         p, a, shape = model(name, dev)
         mprog = marvel.compile(a, torch.zeros((1, *shape), device=dev),
@@ -2341,6 +2356,9 @@ def main() -> int:
             gemm_forwards[label] = res["matmul_epilogue"]
         if "fused_conv" in res:
             conv_forwards[label] = res["fused_conv"]
+        for k in pool_forwards:
+            if k in res:
+                pool_forwards[k][label] = res[k]
 
     # 4) the main paths: serve through the async engine, counts from 0
     params_cpu, _, _ = model("resnet50", "cpu")
@@ -2415,15 +2433,21 @@ def main() -> int:
             form_entry(f"{LM_ARCH} v4 prefill", prefill["flash_attention"],
                        "wgmma")],
     }
-    # the f32 GEMM (fma form) and the int8 conv (on int8 tensor cores) on
-    # each CNN forward that times them
+    # the f32 GEMM (fma form), the int8 conv (on int8 tensor cores) and the
+    # pools (vector form) on each CNN forward that times them
     cnn_forwards = {
         "matmul_epilogue": [form_entry(f"{label} batch {BATCH}", agg, "fma")
                             for label, agg in gemm_forwards.items()],
         "fused_conv": [form_entry(f"{label} batch {BATCH}", agg, "imma")
                        for label, agg in conv_forwards.items()]}
+    for name, per in pool_forwards.items():
+        cnn_forwards[name] = [form_entry(f"{label} batch {BATCH}", agg,
+                                         "vector")
+                              for label, agg in per.items()]
     for name, lib_name in (("matmul_epilogue", "torch.matmul"),
-                           ("fused_conv", "cuDNN f32")):
+                           ("fused_conv", "cuDNN f32"),
+                           ("windowed_pool", "F.max_pool2d / F.avg_pool2d"),
+                           ("global_avgpool", "x.mean")):
         for entry in cnn_forwards[name]:
             lib = entry["library_ms"]
             log(f"{name} {entry['form']} form, {entry['forward']}: "

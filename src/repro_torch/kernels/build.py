@@ -35,8 +35,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "marvel_matmul_epilogue": (_P,) * 8 + (_I,) * 10 + (_P,),
     "marvel_fused_conv": (_P,) * 8 + (_I,) * 16 + (_P,),
-    "marvel_windowed_pool": (_P, _P) + (_I,) * 10 + (_P,),
-    "marvel_global_avgpool": (_P, _P, _I, _I, _I, _I, _P),
+    "marvel_windowed_pool": (_P, _P) + (_I,) * 16 + (_P,),
+    "marvel_global_avgpool": (_P, _P) + (_I,) * 8 + (_P,),
     "marvel_depthwise_conv": (_P,) * 5 + (_I,) * 14 + (_P,),
     "marvel_sep_block": (_P,) * 10 + (_I,) * 19 + (_P,),
     "marvel_residual_rmsnorm": (_P,) * 5 + (_I, _I, _F, _I, _P),

@@ -42,7 +42,8 @@ SIX = ["lenet5", "vgg16", "resnet50", "mobilenetv1", "mobilenetv2",
 # kernel launches per v4 forward: (fused_conv, matmul_epilogue, pool,
 # sep_block), as the reference dispatches them
 V4_CALLS = {"resnet50": (20, 34, 2, 0), "mobilenetv1": (1, 1, 1, 13),
-            "mobilenetv2": (1, 18, 1, 17), "densenet121": (59, 62, 5, 0)}
+            "mobilenetv2": (1, 18, 1, 17), "densenet121": (59, 62, 5, 0),
+            "vgg16": (13, 2, 5, 0), "lenet5": (2, 1, 0, 0)}
 
 
 def rel_l2(a, b):
@@ -152,9 +153,8 @@ def test_v4_dispatch_zero_baseline_conv_and_pool_sites(name, monkeypatch):
     assert calls["pool"] == sites["pool"]
     assert calls["sep"] == sites["sep_block"]
     assert calls["dw"] == sites["depthwise_conv"] - sites["sep_block"] == 0
-    if name in V4_CALLS:
-        assert (calls["conv"], calls["gemm"], calls["pool"],
-                calls["sep"]) == V4_CALLS[name]
+    assert (calls["conv"], calls["gemm"], calls["pool"],
+            calls["sep"]) == V4_CALLS[name]
     if name == "resnet50":
         assert sites["acc_mac"] == 16
 

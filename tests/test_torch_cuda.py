@@ -30,6 +30,15 @@ products' magnitude bound; two launches of each give the same bits and
 every split launch leaves its tile counters 0; every depthwise shape of
 MobileNetV1/V2 at stride 1 and 2, equal to the plain version.
 
+The pool kernels in each form, read from the wrappers'
+``launches_by_form``: the vector form at every pool launch shape of the
+CNN path cut to batch 2 (VGG16's five max pools, the 3x3 stem pool,
+DenseNet121's three avg pools, the four global-average pools), in f32 and
+int8; a NaN planted in one max window per form, which must come out NaN
+(as ``torch.maximum`` gives it); an input view one element past an aligned
+address, which takes the scalar form; the global average at H*W = 1, 4
+(vector form) and 143 (rows form).
+
 The LM kernels: ``residual_rmsnorm`` on the grid's rows (33 x 96, 130 x
 257) and qwen3-8b's (8 and 2048 rows of 4096), ``flash_attention`` on the
 grid's grouped and ragged cases and qwen3-8b's heads, and the GEMM on bf16
@@ -303,6 +312,105 @@ def test_pool_kernels_match_plain(card, case):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     else:
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+# every pool launch shape of the CNN path at batch 2: (shape, op, window)
+VECTOR_POOL_CASES = [
+    *(((2, h, h, c), "max", 2) for h, c in ((64, 64), (32, 128), (16, 256),
+                                             (8, 512), (4, 512))),
+    ((2, 32, 32, 64), "max", 3),
+    *(((2, h, h, c), "avg", 2) for h, c in ((15, 128), (7, 256), (3, 512))),
+]
+GAP_VECTOR_SHAPES = [(2, 2, 2, 2048), (2, 2, 2, 1280), (2, 2, 2, 1024),
+                     (2, 1, 1, 1024)]
+
+
+def _pool_x(card, shape, dtype, seed=0):
+    r = _rng(seed)
+    if np.dtype(dtype) == np.int8:
+        return torch.from_numpy(r.integers(-127, 128, shape, np.int8)).to(card)
+    return torch.from_numpy(r.standard_normal(shape, np.float32)).to(card)
+
+
+def _assert_pool(got, want, op):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if op == "max":
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    elif op == "avg":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    else:  # global average: another sum order than torch.sum's
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _pool_launch(x, op, k=2):
+    """(kernel result, plain result, launches per form of the call): the
+    wrapper's form counters set to 0 just before."""
+    from repro_torch.kernels import pooling as pk
+
+    if op == "global_avg":
+        fn, plain, kw = pk.global_avgpool, pk.global_avgpool_plain, {}
+        fn.launches_by_form = {"vector": 0, "rows": 0, "scalar": 0}
+    else:
+        fn, plain = pk.windowed_pool, pk.windowed_pool_plain
+        kw = dict(k=k, stride=2, op=op)
+        fn.launches_by_form = {"vector": 0, "scalar": 0}
+    got = fn(x, **kw)
+    return got, plain(x, **kw), fn.launches_by_form
+
+
+def _one(form, forms):
+    return {f: int(f == form) for f in forms}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int8])
+@pytest.mark.parametrize("shape,op,k", VECTOR_POOL_CASES, ids=str)
+def test_windowed_pool_vector_form_at_cnn_shapes(card, shape, op, k, dtype):
+    got, want, forms = _pool_launch(_pool_x(card, shape, dtype), op, k)
+    _assert_pool(got, want, op)
+    assert forms == _one("vector", forms)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int8])
+@pytest.mark.parametrize("shape", GAP_VECTOR_SHAPES, ids=str)
+def test_global_avgpool_vector_form_at_cnn_shapes(card, shape, dtype):
+    got, want, forms = _pool_launch(_pool_x(card, shape, dtype), "global_avg")
+    _assert_pool(got, want, "global_avg")
+    assert forms == _one("vector", forms)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("c,form", [(64, "vector"), (5, "scalar")])
+def test_max_pool_propagates_a_planted_nan(card, c, form, k):
+    """A NaN in a max window gives NaN, as ``torch.maximum`` and the
+    reference's ``lax.max`` do (the NaN is not the window's first tap)."""
+    x = _pool_x(card, (2, 9, 7, c), np.float32)
+    x[1, 3, 2, c - 1] = float("nan")
+    got, want, forms = _pool_launch(x, "max", k)
+    assert torch.isnan(want).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    _assert_pool(got, want, "max")
+    assert forms == _one(form, forms)
+
+
+@pytest.mark.parametrize("op", ["max", "avg", "global_avg"])
+def test_pool_unaligned_input_takes_the_scalar_form(card, op):
+    shape = (2, 8, 8, 64)
+    buf = _pool_x(card, (int(np.prod(shape)) + 1,), np.float32)
+    x = buf[1:].view(shape)  # one element past an aligned address
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got, want, forms = _pool_launch(x, op)
+    _assert_pool(got, want, op)
+    assert forms == _one("scalar", forms)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int8])
+@pytest.mark.parametrize("hw,form", [((1, 1), "vector"), ((2, 2), "vector"),
+                                     ((13, 11), "rows")])
+def test_global_avgpool_forms_by_pixels(card, hw, form, dtype):
+    got, want, forms = _pool_launch(_pool_x(card, (2, *hw, 64), dtype),
+                                    "global_avg")
+    _assert_pool(got, want, "global_avg")
+    assert forms == _one(form, forms)
 
 
 @pytest.mark.parametrize("case", DW_CASES, ids=str)

@@ -4,8 +4,10 @@ forward, as ``chip_smoke.py`` times them: the f32 GEMM
 (``matmul_epilogue``, fma form) in one recorded batch-8 forward of
 ResNet50, MobileNetV2 and DenseNet121 at v4, the int8 depthwise kernel in
 MobileNetV2 at v2, the fused separable block (``sep_block``) in
-MobileNetV2 and MobileNetV1 at v4, and the int8 conv (``fused_conv``) in
-ResNet50 and DenseNet121 at v4 and MobileNetV2 at v2; every launch held
+MobileNetV2 and MobileNetV1 at v4, the int8 conv (``fused_conv``) in
+ResNet50 and DenseNet121 at v4 and MobileNetV2 at v2, the windowed pool in
+VGG16, ResNet50 and DenseNet121 at v4 and the global-average pool in
+ResNet50, MobileNetV1, MobileNetV2 and DenseNet121 at v4; every launch held
 against its plain version, the first launch of each shape timed beside its
 library call, the times summed over the forward's launches.  The bound is
 the sum over the launches of each launch's bound (the larger of its bytes
@@ -27,15 +29,15 @@ import os
 import subprocess
 import sys
 
-FORWARDS = (("resnet50 v4", "matmul_epilogue"),
-            ("mobilenetv2 v4", "matmul_epilogue"),
-            ("densenet121 v4", "matmul_epilogue"),
-            ("mobilenetv2 v2", "depthwise_conv"),
-            ("mobilenetv2 v4", "sep_block"),
-            ("mobilenetv1 v4", "sep_block"),
-            ("resnet50 v4", "fused_conv"),
-            ("densenet121 v4", "fused_conv"),
-            ("mobilenetv2 v2", "fused_conv"))
+FORWARDS = {"resnet50 v4": ("matmul_epilogue", "fused_conv", "windowed_pool",
+                            "global_avgpool"),
+            "mobilenetv2 v4": ("matmul_epilogue", "sep_block",
+                               "global_avgpool"),
+            "densenet121 v4": ("matmul_epilogue", "fused_conv",
+                               "windowed_pool", "global_avgpool"),
+            "mobilenetv2 v2": ("depthwise_conv", "fused_conv"),
+            "mobilenetv1 v4": ("sep_block", "global_avgpool"),
+            "vgg16 v4": ("windowed_pool",)}
 
 
 def forward_bound(cs, rec, kernel):
@@ -80,8 +82,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    for label, kernel in FORWARDS:
-        if only and kernel not in only:
+    for label, kernels in FORWARDS.items():
+        kernels = [k for k in kernels if not only or k in only]
+        if not kernels:
             continue
         name, level = label.split()
         params, apply, shape = cs.model(name, dev)
@@ -90,14 +93,16 @@ def main() -> int:
         batch = torch.from_numpy(np.stack(random_images(
             shape, cs.BATCH))).to(dev)
         rec, counts, _ = cs.record_launches(prog, batch)
-        agg = cs.hold(rec, (kernel,), timed=True)[kernel]
-        bound_ms, bytes_ms, ops_ms = forward_bound(cs, rec, kernel)
-        print(json.dumps({
-            "tag": args.tag, "tree": tree, "forward": label,
-            "kernel": kernel, "launches": counts[kernel], "ms": agg["ms"],
-            "library_ms": agg["library_ms"], "plain_ms": agg["plain_ms"],
-            "bound_ms": bound_ms, "bound_bytes_ms": bytes_ms,
-            "bound_ops_ms": ops_ms, "card": card}), flush=True)
+        for kernel in kernels:
+            agg = cs.hold(rec, (kernel,), timed=True)[kernel]
+            bound_ms, bytes_ms, ops_ms = forward_bound(cs, rec, kernel)
+            print(json.dumps({
+                "tag": args.tag, "tree": tree, "forward": label,
+                "kernel": kernel, "launches": counts[kernel],
+                "ms": agg["ms"], "library_ms": agg["library_ms"],
+                "plain_ms": agg["plain_ms"], "bound_ms": bound_ms,
+                "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
+                "card": card}), flush=True)
     return 0
 
 

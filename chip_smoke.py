@@ -59,6 +59,20 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    responses printed
    beside), and a planted dropped act in the depthwise stage must exceed
    the limit of each mobile net's forward;
+3c. each of the six CNNs compiled at v4 with int8 PTQ of its parameters
+   (``marvel.compile(..., quantize=True)``): its summary printed (class,
+   extensions, rewrite stats, the v0..v4 rv32 and modelled GPU ladders and
+   speedups) and its report held number for number against the same
+   compile on the CPU; one batch-8 forward of the program recorded, with
+   launch counts equal to ``PER_FORWARD`` and every launch held against
+   its plain version, and its logits against the CPU program within
+   ``E2E_LIMIT`` (the noise response printed beside it); the bucket's
+   rewritten graph (``baked_graph``) traced, run with the same launch
+   counts (the rewrite adds and removes no launch), and its logits held
+   against the same program without the rewrite (``do_rewrite=False``:
+   the largest difference printed, expected 0); the trace time, and the
+   wall and device-busy time (``torch.profiler``, every kernel of the
+   forward) of the graph and of the program's eager executable;
 4. serve 32 ResNet50 requests through the async engine with every launch
    counter set to 0 just before: each batch must launch 20 fused_conv, 34
    matmul_epilogue, 1 windowed pool and 1 global-average pool kernels, take
@@ -149,7 +163,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    under the v4 rnn_lm table, each equal to the plain int32 sum; each case
    timed beside ``torch._int_mm`` and the scale (its operands zero-padded
    to what ``_int_mm`` takes) and its bound;
-9. the ``{"kernels": [...]}`` line (each kernel on the forward its entry
+9. no compiled program failed to rewrite a bucket whose graph was asked
+   for (``rewrite_fallbacks``); the
+   ``{"kernels": [...]}`` line (each kernel on the forward its entry
    names; the GEMM's and flash attention's tensor-core forms on the LM
    forwards under ``tensor_core_forms``) and the ``{"ok": true, ...}``
    last line.
@@ -165,6 +181,12 @@ integer kernels agree within 1e-5 (exact int32 sums; mac_matmul_int8
 exactly), the pools exactly or within 1e-6, the norm within the bound of
 its mean of squares (``rmsnorm_case``), and the wkv recurrence within
 ``wkv_tol``.
+
+Every program runs its bound function eagerly per shape bucket; its
+chess_rewritten graph (``repro_torch.core.rewrite``, the kernels as
+``marvel::`` ops that reach each kernel through its module's attribute at
+call time, so the recorders below see every launch) is traced and run in
+phase 3c.
 
 After phase 3a, TF32 is off for every f32 product and convolution of the
 plain versions and yardsticks (``torch.backends.cuda.matmul.allow_tf32``
@@ -1141,6 +1163,25 @@ def extra_cases(dev):
     return {"fused_conv": [(x, w, es, eb, res, 1, "SAME", "relu")]}
 
 
+# every program this run compiles, so none may have counted a bucket whose
+# rewrite failed (``rewrite_fallbacks``)
+PROGRAMS: list = []
+
+
+def track_programs() -> None:
+    """Record every ``marvel.compile`` of the run in ``PROGRAMS``."""
+    from repro_torch import marvel
+
+    real = marvel.compile
+
+    def compile(*args, **kwargs):
+        prog = real(*args, **kwargs)
+        PROGRAMS.append(prog)
+        return prog
+
+    marvel.compile = compile
+
+
 def rel_l2(got, want) -> float:
     import torch
 
@@ -1430,6 +1471,151 @@ def serve_phase(label, prog, apply, in_shape, params_cpu, card):
 
     e2e_check(label, prog, apply, params_cpu, batch)
     return launches, statistics.median(walls)
+
+
+# ---------------------------------------------------------------------------
+# the report, int8 PTQ and the chess_rewrite pass: the six CNNs
+# ---------------------------------------------------------------------------
+
+REPORT_CNNS = ("lenet5", "vgg16", "resnet50", "mobilenetv1", "mobilenetv2",
+               "densenet121")
+
+
+def report_numbers(report) -> dict:
+    """Every label and number of a report, for an exact comparison."""
+    prof = report.profile
+    return {"class": report.model_class,
+            "extensions": report.recommended_extensions,
+            "rewrite_stats": report.rewrite_stats,
+            "rewrite_ok": report.rewrite_ok,
+            "inputs": prof.as_costmodel_inputs(), "counts": dict(prof.counts),
+            "conv_strides": dict(prof.conv_strides),
+            "site_counts": dict(prof.site_counts),
+            **{k: getattr(report, k) for k in (
+                "rv32_cycles", "rv32_energy_j", "gpu_cycles", "gpu_energy_j",
+                "hbm_bytes", "rv32_speedup_v4", "gpu_speedup_v4")}}
+
+
+def wall_ms(fn, n: int = 5) -> float:
+    """Median host wall time of ``n`` calls, each ended by a synchronize."""
+    import torch
+
+    fn()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def device_busy_ms(fn):
+    """The summed device time of every kernel one call of ``fn`` launches
+    (``torch.profiler``'s CUPTI trace: the port's kernels and PyTorch's
+    own, each device event counted once, not again under the host op that
+    launched it); None where the trace shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as trace:
+        fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in trace.events()
+                   if e.device_type == DeviceType.CUDA)
+    return total_us / 1e3 if total_us > 0 else None
+
+
+def report_phase(dev, card) -> None:
+    """3c: each of the six CNNs compiled at v4 with int8 PTQ of its
+    parameters (``quantize=True``) on the card, its report printed and held
+    number for number against the same compile on the CPU, one batch-8
+    forward recorded (launch counts equal ``PER_FORWARD``, every launch
+    held against its plain version) and its logits against the CPU program
+    within ``E2E_LIMIT``; the bucket's rewritten graph traced and run (the
+    same launch counts, its logits against the unrewritten program
+    ``do_rewrite=False``, expected equal), and the wall and device-busy
+    time of the graph and of the eager executable."""
+    import numpy as np
+    import torch
+    from repro_torch import marvel
+    from repro_torch.kernels.common import full_f32
+    from repro_torch.launch.serve import random_images
+
+    for name in REPORT_CNNS:
+        label = f"{name} v4"
+        params, apply, shape = model(name, dev)
+        params_cpu, _, _ = model(name, "cpu")
+        x0 = torch.zeros((1, *shape))
+        t0 = time.perf_counter()
+        prog = marvel.compile(apply, x0.to(dev), params=params, level="v4",
+                              quantize=True)
+        t_compile = time.perf_counter() - t0
+        cpu = marvel.compile(apply, x0, params=params_cpu, level="v4",
+                             backend="cuda", quantize=True, device="cpu")
+        assert prog.quantized and prog.rewrite_baked, prog.summary()
+        assert prog.table == cpu.table, (prog.table, cpu.table)
+        assert prog.quant_stats == cpu.quant_stats, prog.quant_stats
+        same = report_numbers(prog.report) == report_numbers(cpu.report)
+        log(f"{label}, int8 PTQ {prog.quant_stats}, compiled in "
+            f"{t_compile:.2f} s on {card}; report equal to the CPU "
+            f"compile's: {same}\n{prog.summary()}")
+        assert same, (report_numbers(prog.report), report_numbers(cpu.report))
+
+        xb = torch.from_numpy(np.stack(random_images(shape, BATCH))).to(dev)
+        recorded, counts, got = record_launches(prog, xb)
+        check_counts(label, counts)
+        hold(recorded, [k for k in KERNELS if counts[k]], timed=False)
+        del recorded
+        got = got.cpu()
+        want = cpu(xb.cpu())
+        assert got.shape == want.shape == (BATCH, want.shape[1])
+        assert torch.isfinite(got).all()
+        rel = rel_l2(got, want)
+        sites = site_noise_response(prog, xb, got)
+        limit = E2E_LIMIT[label]
+        log(f"{label} quantized: logits vs the CPU program: relative L2 "
+            f"{rel:.3e} (limit {limit:g}); response to 1e-7 relative noise "
+            f"on every site's input (max of 3) {sites:.3e}")
+        assert rel <= limit, rel
+
+        t0 = time.perf_counter()
+        graph = prog.baked_graph(xb)
+        trace_s = time.perf_counter() - t0
+        assert graph is not None, prog.summary()
+
+        def run_graph():  # the plain versions' products in full f32
+            with torch.inference_mode(), full_f32():
+                return graph(xb)
+
+        with counted() as graph_counts:
+            rewritten = run_graph().cpu()
+        check_counts(label, graph_counts)
+        plain = marvel.compile(apply, x0.to(dev), params=params, level="v4",
+                               quantize=True, do_rewrite=False)
+        assert plain.baked_graph(xb) is None
+        unrewritten = plain(xb).cpu()
+        diff = (rewritten - unrewritten).abs().max().item()
+        rel_un = rel_l2(rewritten, unrewritten)
+        log(f"{label} quantized: rewritten graph vs the unrewritten program "
+            f"on the card: max |diff| {diff:.3e}, relative L2 {rel_un:.3e} "
+            f"(limit {limit:g}); launches per forward equal: "
+            f"{ {k: v for k, v in graph_counts.items() if k != 'forms'} }")
+        assert rel_un <= limit, rel_un
+        forms = {"rewritten graph": run_graph,
+                 "eager (the bucket's executable)": lambda: prog(xb)}
+        times = {form: (wall_ms(fn), device_busy_ms(fn))
+                 for form, fn in forms.items()}
+        log(f"{label} quantized, batch {BATCH} on {card}: the rewrite's "
+            f"trace at this bucket {trace_s * 1e3:.1f} ms; " + "; ".join(
+                f"{form}: wall {w:.3f} ms, device busy "
+                + ("not measured" if b is None else f"{b:.3f} ms, host "
+                   f"{w - b:.3f} ms") for form, (w, b) in times.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -2257,6 +2443,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
 
+    track_programs()
+
     # 1) the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2359,6 +2547,9 @@ def main() -> int:
         for k in pool_forwards:
             if k in res:
                 pool_forwards[k][label] = res[k]
+
+    # 3c) the report, int8 PTQ and the rewritten graphs of the six CNNs
+    report_phase(dev, card)
 
     # 4) the main paths: serve through the async engine, counts from 0
     params_cpu, _, _ = model("resnet50", "cpu")
@@ -2472,6 +2663,11 @@ def main() -> int:
             "tensor_core_forms": tensor_core.get(name, []),
             "cnn_forwards": cnn_forwards.get(name, []),
         })
+    fell_back = [p.summary() for p in PROGRAMS if p.rewrite_fallbacks]
+    log(f"{len(PROGRAMS)} programs compiled, "
+        f"{sum(p.rewrite_baked for p in PROGRAMS)} rewritten at compile, "
+        f"{len(fell_back)} with a bucket whose rewrite failed")
+    assert not fell_back, fell_back
     log("(kernel times are per forward, the one each entry names: the sum "
         "over its launches of each launch's median)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,10 +2,18 @@
 
 Two sources feed one profile, as in the reference's ``core/profiler.py``:
 
-  1. *instruction level* — the ATen ops the baseline issues, counted by a
-     ``TorchDispatchMode``: ``conv`` (convolutions), ``dot`` (matrix
-     products) and ``mul(mac)`` (both), the counts ``classify`` and
-     ``extensions_for_class`` read;
+  1. *instruction level* — the ATen ops the baseline issues, seen by a
+     ``TorchDispatchMode`` and mapped one by one onto the reference's jaxpr
+     equation classes (:data:`OP_CLASSES`): matrix products and
+     convolutions, elementwise mul, elementwise add/sub, transparent layout
+     plumbing, activations, and everything else.  From them come the
+     instruction counts (``conv``, ``dot``, ``mul(mac)``, ``mul_add(mac)``,
+     ``fusedmac``, ``add``, ``addi``, ``addi_addi(add2i)``,
+     ``loop(blt)``, ``other:<op>``), the literal add immediates
+     (``addi_values``), the conv inner-loop address bumps
+     (``conv_strides``) and the FLOP and byte totals of the cost model
+     (``flops``, ``matmul_flops``, ``conv_flops``, ``hbm_bytes``,
+     ``weight_bytes``);
   2. *pattern-site level* — the dispatch layer records every fusable call
      site with its tensor bytes, plus the reference's pseudo-sites
      (``acc_mac``, ``acc_flops``, ``conv_epilogue``, ``dw_mac_flops``,
@@ -16,11 +24,16 @@ Two sources feed one profile, as in the reference's ``core/profiler.py``:
 A model's stack of layers runs through :func:`scan`, the port's
 ``lax.scan``: while a profile records, its body runs once, as the
 reference's profiler traces a scan body once, so site counts are per
-program site and ``loop_iters`` adds the trip count.
+program site; ``loop_iters`` and ``loop(blt)`` add the trip count, and
+every instruction count, FLOP and byte recorded inside the body is
+multiplied by it, as the reference's walk multiplies a scan body's.  The
+two sites whose baselines are Python loops where the reference scans are
+credited from their shapes: an attention site adds its chunk trips, and a
+wkv site is counted as the reference's scan body (:func:`_wkv_eqns`) times
+its chunks, its own baseline unrecorded.
 
 The model runs on fake tensors (meta-backed: shapes and dtypes, no data),
-so nothing is computed and no device is touched.  FLOP and byte totals for
-the cost model come with the cost-model slice.
+so nothing is computed and no device is touched.
 """
 from __future__ import annotations
 
@@ -34,6 +47,8 @@ import numpy as np
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core import dispatch
 from repro_torch.kernels import pooling as _pk
@@ -53,17 +68,47 @@ def _sink() -> list | None:
     return getattr(_tls, "sink", None)
 
 
+def _mult() -> float:
+    return getattr(_tls, "mult", 1.0)
+
+
 def scan(body, carry, layers):
     """``carry = body(p, carry)`` for each layer's params ``p`` in order.
     While a profile records on this thread, the body runs once, on the
-    first layer (the reference traces a scan body once), and the trip count
-    goes to the profile's ``loop_iters``."""
+    first layer (the reference traces a scan body once): the trip count
+    goes to the profile's ``loop_iters`` and multiplies what the body's ops
+    record.  While :mod:`~repro_torch.core.rewrite` traces, the body's
+    nodes are tagged, as the reference's rewrite does not enter a scan."""
     if _sink() is not None:
-        _tls.loop_iters = getattr(_tls, "loop_iters", 0) + len(layers)
-        return body(layers[0], carry)
-    for p in layers:
-        carry = body(p, carry)
+        outer = _mult()
+        _tls.loop_iters = getattr(_tls, "loop_iters", 0) + outer * len(layers)
+        _tls.mult = outer * len(layers)
+        try:
+            return body(layers[0], carry)
+        finally:
+            _tls.mult = outer
+    from repro_torch.core import rewrite
+
+    with rewrite.scan_body():
+        for p in layers:
+            carry = body(p, carry)
     return carry
+
+
+def _add_trips(n: float) -> None:
+    _tls.loop_iters = getattr(_tls, "loop_iters", 0) + _mult() * n
+
+
+def _attention_trips(q, k, kwargs) -> int:
+    """The KV chunks (or query blocks) an attention site's baseline loops
+    over: the trips of the reference's ``lax.scan`` in the same form
+    (``models/layers.py``); the naive form has none."""
+    if kwargs.get("window") is not None:
+        return -(-q.shape[1] // kwargs["window"])
+    if kwargs.get("impl", "chunked") == "naive":
+        return 0
+    skv = k.shape[1]
+    return -(-skv // min(kwargs.get("chunk", 512), skv))
 
 
 def _leaves(tree):
@@ -201,6 +246,7 @@ def _record_pseudo_sites(s: list, pattern: str, args, kwargs) -> None:
 def _recording(sink: list):
     _tls.sink = sink
     _tls.loop_iters = 0
+    _tls.mult = 1.0
     orig_call = dispatch.call
 
     def recording_call(pattern, baseline, *args, **kwargs):
@@ -213,7 +259,19 @@ def _recording(sink: list):
                          for t in _leaves((args, kw_payload)))
             s.append((pattern, int(nbytes)))
             _record_pseudo_sites(s, pattern, args, kwargs)
-        return orig_call(pattern, baseline, *args, **kwargs)
+        counter = getattr(_tls, "counter", None)
+        run = lambda: orig_call(pattern, baseline, *args, **kwargs)  # noqa: E731
+        if counter is not None:
+            if pattern == "pool":
+                return counter.pool(kwargs.get("op"), args[0], run)
+            if pattern == "wkv_chunk":
+                return counter.wkv(args, kwargs, run)
+            if pattern == "flash_attention":
+                # the baseline's Python loop issues its body every trip, as
+                # the reference counts its scan body times the trips: only
+                # the trips themselves are added
+                _add_trips(_attention_trips(args[0], args[1], kwargs))
+        return run()
 
     dispatch.call = recording_call
     try:
@@ -227,32 +285,310 @@ def _recording(sink: list):
 # instruction-level counting
 # ---------------------------------------------------------------------------
 
-CONV_OPS = {"aten.convolution"}
-DOT_OPS = {"aten.mm", "aten.bmm", "aten.addmm", "aten.baddbmm", "aten.dot",
-           "aten.mv"}
+# Each ATen op the baseline issues, mapped onto the class of the
+# reference's jaxpr equation that does the same work (its ``_walk``):
+#   matmul       dot_general / conv_general_dilated: the reference's
+#                _dot_flops / _conv_flops arithmetic; ``aten.addmm`` and a
+#                convolution carrying a bias are the matmul eqn plus an add
+#   mul, add     elementwise mul; elementwise add / sub (flops: output bytes
+#                / 4, the reference's count)
+#   act          the activations a fusedmac chain ends in (``max`` with a
+#                literal for relu; ``clamp`` / ``hardtanh`` for relu6 are the
+#                reference's ``max`` then ``min``, two eqns)
+#   transparent  layout plumbing with no RV32 instruction and no device-
+#                memory traffic: views, permutes, contiguous / clone copies
+#                made for layout, dtype casts, fills standing for broadcast
+#                literals, and ``constant_pad_nd`` (the reference's conv
+#                carries its padding inside the eqn)
+#   other        everything else: bytes only, counted as ``other:<op>``
+OP_CLASSES = {
+    "matmul": ("aten.convolution", "aten.mm", "aten.bmm", "aten.addmm",
+               "aten.baddbmm", "aten.dot", "aten.mv"),
+    "mul": ("aten.mul",),
+    "add": ("aten.add", "aten.sub", "aten.rsub"),
+    "act": ("aten.sigmoid", "aten.tanh", "aten.erf", "aten.maximum",
+            "aten.clamp_min", "aten.relu", "aten.clamp", "aten.hardtanh",
+            "aten.exp", "aten.rsqrt"),
+    "transparent": (
+        "aten.view", "aten._unsafe_view", "aten._reshape_alias",
+        "aten.permute", "aten.transpose", "aten.t",
+        "aten.expand", "aten.squeeze", "aten.unsqueeze", "aten.slice",
+        "aten.select", "aten.split", "aten.split_with_sizes", "aten.unbind",
+        "aten.alias", "aten.detach", "aten.as_strided", "aten.clone",
+        "aten._to_copy", "aten.lift_fresh",
+        "aten.constant_pad_nd", "aten.zeros", "aten.zeros_like",
+        "aten.ones", "aten.ones_like", "aten.full", "aten.full_like",
+        "aten.empty", "aten.empty_like", "aten.empty_strided",
+        "aten.new_zeros", "aten.new_ones", "aten.new_full",
+        "aten.new_empty", "aten.scalar_tensor"),
+}
+_CLASS_OF = {op: cls for cls, ops in OP_CLASSES.items() for op in ops}
+# ops that are more than one reference eqn: relu6's clamp is max then min
+_EQNS = {"aten.clamp": 2, "aten.hardtanh": 2}
+# a matmul op that also adds its bias (the reference's dot + add)
+_BIASED = {"aten.addmm": 0, "aten.baddbmm": 0, "aten.convolution": 2}
+# where each matmul op takes its weight-like right operand
+_RHS = {"aten.addmm": 2, "aten.baddbmm": 2}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _matmul_flops(name: str, args, out: torch.Tensor) -> float:
+    if name == "aten.convolution":
+        # 2 * out_elems * (kernel_elems / out_channels), the reference's
+        w = args[1]
+        return 2.0 * out.numel() * (w.numel() / max(out.shape[1], 1))
+    if name in ("aten.mm", "aten.addmm"):
+        a, b = (args[1], args[2]) if name == "aten.addmm" else args[:2]
+        return 2.0 * a.shape[0] * a.shape[1] * b.shape[1]
+    if name in ("aten.bmm", "aten.baddbmm"):
+        a, b = (args[1], args[2]) if name == "aten.baddbmm" else args[:2]
+        return 2.0 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+    if name == "aten.mv":
+        return 2.0 * args[0].shape[0] * args[0].shape[1]
+    return 2.0 * args[0].shape[0]  # aten.dot
+
+
+def _wkv_eqns(r, k, v, lw, u, s0, chunk) -> None:
+    """The equations of the reference's wkv scan body
+    (``src/repro/models/rwkv.py::_wkv_chunk_ref``), issued on the first
+    chunk of the site's (fake) tensors so the counter sees their classes
+    and shapes: the profile's account of one trip.  Its three-operand
+    einsum is contracted as the reference's is: the outer product r_t k_s
+    per (b, h, i) as a product over a unit depth, then the sum over i
+    against the decays."""
+    rc, kc, vc, lwc = (t[:, :chunk].float() for t in (r, k, v, lw))
+    s = s0.float()
+    cum = torch.cumsum(lwc, dim=1)
+    cum_excl = cum - lwc
+    o_state = torch.einsum("bthi,bhij->bthj", rc * torch.exp(cum_excl), s)
+    diff = cum_excl[:, :, None] - cum[:, None, :]
+    pos = torch.arange(chunk, device=r.device)
+    tri = pos[:, None] > pos[None, :]
+    dec = torch.exp(torch.where(tri[None, :, :, None, None], diff, -1e30))
+    outer = torch.matmul(rc.permute(0, 2, 3, 1)[..., None],
+                         kc.permute(0, 2, 3, 1)[..., None, :])
+    a = torch.einsum("bhits,btshi->btsh", outer, dec)
+    o_intra = torch.einsum("btsh,bshj->bthj", a, vc)
+    bonus = torch.einsum("bthi,bthi->bth", rc, u.float() * kc)
+    o_diag = bonus[..., None] * vc
+    dec_end = torch.exp(cum[:, -1:] - cum)
+    torch.exp(cum[:, -1])[..., None] * s + torch.einsum(
+        "bthi,bthj->bhij", kc * dec_end, vc)
+    o_state + o_intra + o_diag
+
+
+class _Pending:
+    """A product waiting for its first non-transparent consumer: the
+    reference's ``_next_consumer`` over the dataflow.  ``stage`` is
+    ``"add"`` (a mac if that consumer adds) or ``"act"`` (a fusedmac if
+    the add's consumer is an activation)."""
+
+    __slots__ = ("stage", "mult", "matmul", "done")
+
+    def __init__(self, stage: str, mult: float, matmul: bool = False):
+        self.stage, self.mult, self.matmul = stage, mult, matmul
+        self.done = False
 
 
 class _OpCounter(TorchDispatchMode):
-    def __init__(self, counts: Counter):
+    """The reference's ``_walk`` over the ATen ops as they are issued."""
+
+    def __init__(self, prof: "PatternProfile"):
         super().__init__()
-        self.counts = counts
+        self.prof = prof
+        self.pending = WeakIdKeyDictionary()  # tensor -> [_Pending]
+        self.unpadded = WeakIdKeyDictionary()  # padded tensor -> its source
+        self.prev_addi = False
+        self.quiet = 0
+
+    def pool(self, op, x, run):
+        """A pool site's baseline as the reference's eqns: one windowed
+        (or global) reduce, then for the averages a division by the window
+        (the port's baseline slices taps and adds them)."""
+        self.quiet += 1
+        try:
+            out = run()
+        finally:
+            self.quiet -= 1
+        reduce = {"max": "reduce_window_max", "avg": "reduce_window_sum",
+                  "global_avg": "reduce_sum"}[op]
+        self._account(f"aten.{reduce}", [x], [out])
+        if op != "max":
+            self._account("aten.div", [out], [out])
+        return out
+
+    def wkv(self, args, kwargs, run):
+        """A wkv site's baseline as the reference's ``lax.scan`` over its
+        chunks: the baseline runs unrecorded, then :func:`_wkv_eqns` issues
+        the reference's body once on chunk-shaped tensors, its ops counted
+        times the trips, and the trips go to ``loop_iters``."""
+        self.quiet += 1
+        try:
+            out = run()
+        finally:
+            self.quiet -= 1
+        r, chunk = args[0], (args[6] if len(args) > 6 else kwargs["chunk"])
+        trips = r.shape[1] // chunk
+        outer = _mult()
+        _add_trips(trips)
+        _tls.mult = outer * trips
+        try:
+            _wkv_eqns(*args[:6], chunk)
+        finally:
+            _tls.mult = outer
+        return out
+
+    def _watch(self, tensors, rec: _Pending) -> None:
+        for t in tensors:
+            self.pending.setdefault(t, []).append(rec)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
         name = str(func.overloadpacket)
-        if name in CONV_OPS or name in DOT_OPS:
-            self.counts["mul(mac)"] += 1
-            self.counts["conv" if name in CONV_OPS else "dot"] += 1
-        return func(*args, **(kwargs or {}))
+        if name.startswith("aten.") and not self.quiet:  # not prim.device
+            self._account(name, tree_leaves((args, kwargs)), tree_leaves(out),
+                          args)
+        return out
+
+    def _account(self, name, leaves, outs, args=()):
+        cls = _CLASS_OF.get(name, "other")
+        ins = [t for t in leaves if isinstance(t, torch.Tensor)]
+        outs = [t for t in outs if isinstance(t, torch.Tensor)]
+        out = outs[0] if outs else None
+        waiting = {id(r): r for t in ins for r in self.pending.get(t, ())
+                   if not r.done}
+        if cls == "transparent":
+            for rec in waiting.values():
+                self._watch(outs, rec)
+            if name == "aten.constant_pad_nd":
+                self.unpadded[out] = self.unpadded.get(args[0], args[0])
+            self.prev_addi = False
+            return
+
+        prof, mult = self.prof, _mult()
+        c = prof.counts
+        for rec in waiting.values():
+            rec.done = True
+            if rec.stage == "add" and cls == "add":
+                c["mul_add(mac)"] += rec.mult
+                if rec.matmul:
+                    self._watch(outs, _Pending("act", rec.mult))
+            elif rec.stage == "act" and cls == "act":
+                c["fusedmac"] += rec.mult
+        if name == "aten.convolution":  # the unpadded input, as the reference
+            ins[0] = self.unpadded.get(ins[0], ins[0])
+        in_bytes = sum(_nbytes(t) for t in ins)
+        out_bytes = sum(_nbytes(t) for t in outs)
+        prof.hbm_bytes += mult * _EQNS.get(name, 1) * (in_bytes + out_bytes)
+        is_addi = False
+        if cls == "matmul":
+            fl = _matmul_flops(name, args, out)
+            prof.flops += mult * fl
+            prof.matmul_flops += mult * fl
+            prof.weight_bytes += mult * _nbytes(args[_RHS.get(name, 1)])
+            c["mul(mac)"] += mult
+            c["conv" if name == "aten.convolution" else "dot"] += mult
+            if name == "aten.convolution":
+                prof.conv_flops += mult * fl
+                lhs = ins[0]
+                if lhs.ndim == 4:  # NCHW: a row of the NHWC input is W*C
+                    row = int(lhs.shape[3] * lhs.shape[1]) or 1
+                    prof.conv_strides[(1, row)] += mult * fl / 2.0
+            bias = _BIASED.get(name)
+            if bias is not None and args[bias] is not None:
+                prof.flops += mult * out_bytes / 4  # the bias add
+                c["add"] += mult
+                c["mul_add(mac)"] += mult
+                self._watch(outs, _Pending("act", mult))
+            else:
+                self._watch(outs, _Pending("add", mult, matmul=True))
+        elif cls == "mul":
+            prof.flops += mult * out_bytes / 4
+            c["mul"] += mult
+            self._watch(outs, _Pending("add", mult))
+        elif cls == "add":
+            prof.flops += mult * out_bytes / 4
+            c["add"] += mult
+            literals = [a for a in leaves if isinstance(a, (int, float))
+                        and not isinstance(a, bool)]
+            if literals:
+                is_addi = True
+                c["addi"] += mult
+                for v in literals:
+                    if isinstance(v, int):
+                        prof.addi_values[v] += int(mult)
+                if self.prev_addi:
+                    c["addi_addi(add2i)"] += mult
+        else:
+            c[f"other:{name.removeprefix('aten.')}"] += mult * _EQNS.get(
+                name, 1)
+        self.prev_addi = is_addi
 
 
 @dataclass
 class PatternProfile:
-    # instruction level
+    # instruction level (Fig 3 analogue)
     counts: Counter = field(default_factory=Counter)
+    # literal operand values of scalar integer adds (Fig 4 analogue:
+    # immediate-value distribution that sized the paper's 5/10-bit split)
+    addi_values: Counter = field(default_factory=Counter)
+    # (i1, i2) address-bump immediates of conv inner loops: (element step,
+    # row stride) in int8 elements — what TVM's addi;addi pairs encode
+    conv_strides: Counter = field(default_factory=Counter)
     # pattern-site level (bytes per fusable call site, pseudo-sites too)
     site_counts: Counter = field(default_factory=Counter)
     site_bytes: Counter = field(default_factory=Counter)
+    flops: float = 0.0
+    matmul_flops: float = 0.0
+    conv_flops: float = 0.0  # conv share of matmul_flops
+    hbm_bytes: float = 0.0
+    weight_bytes: float = 0.0
     loop_iters: float = 0.0
+
+    def as_costmodel_inputs(self) -> dict:
+        """The cost model's inputs, the reference's keys and sources."""
+        sb = self.site_bytes
+        return {
+            "flops": self.flops,
+            "matmul_flops": self.matmul_flops,
+            "conv_flops": self.conv_flops,
+            "hbm_bytes": self.hbm_bytes,
+            "weight_bytes": self.weight_bytes,
+            "residual_norm_bytes": float(sb["residual_rmsnorm"]),
+            "epilogue_bytes": 0.5 * float(sb["matmul_epilogue"]),
+            # the conv bias/BN/act round-trips fused_conv keeps in-register
+            "conv_epilogue_bytes": float(sb["conv_epilogue"]),
+            # the depthwise share of matmul_flops (dw_mac lands at v2) and
+            # the dw epilogue round-trips its kernel fuses
+            "dw_flops": float(sb["dw_mac_flops"]),
+            "dw_epilogue_bytes": float(sb["dw_epilogue"]),
+            # the separable-block intermediate the fused kernel never writes
+            "sep_intermediate_bytes": float(sb["sep_intermediate"]),
+            # acc_mac: the skip-add round-trip fused into the epilogues,
+            # and its standalone adds' rv32 issue slots
+            "acc_bytes_saved": float(sb["acc_mac"]),
+            "acc_flops": float(sb["acc_flops"]),
+            # pool: window work (rv32 slots) and the bytes the int8 pooling
+            # unit keeps off device memory at v2+
+            "pool_flops": float(sb["pool_flops"]),
+            "pool_saved_bytes": float(sb["pool_epilogue"] + sb["pool_int8"]),
+            "attn_score_bytes": float(sb["attn_scores"]),
+            # weight-less matmul shares (attention, wkv state), subsets of
+            # matmul_flops that join the int8 rate only at v4
+            "attn_flops": float(sb["attn_flops"]),
+            "wkv_flops": float(sb["wkv_flops"]),
+            # the res + x intermediate the add2i kernel keeps in-register
+            "rmsnorm_epilogue_bytes": float(sb["rmsnorm_epilogue"]),
+            "loop_iters": self.loop_iters,
+        }
+
+    def normalized_counts(self) -> dict:
+        total = sum(self.counts.values()) or 1
+        return {k: v / total for k, v in self.counts.items()}
 
 
 def site_shapes(fn: Callable, *patterns: str) -> list[tuple]:
@@ -292,9 +628,15 @@ def profile_fn(fn: Callable, *args, **kwargs) -> PatternProfile:
                 if isinstance(a, (torch.Tensor, np.ndarray)) else a
                 for a in args]
         with _recording(sink), dispatch.use_table(dispatch.EMPTY_TABLE), \
-                _OpCounter(prof.counts):
-            fn(*fake, **kwargs)
+                _OpCounter(prof) as counter:
+            _tls.counter = counter
+            try:
+                fn(*fake, **kwargs)
+            finally:
+                _tls.counter = None
             prof.loop_iters = float(_tls.loop_iters)
+            if prof.loop_iters:
+                prof.counts["loop(blt)"] += prof.loop_iters
     for pattern, nbytes in sink:
         prof.site_counts[pattern] += 1
         prof.site_bytes[pattern] += nbytes

@@ -8,6 +8,10 @@ reference's guards (``src/repro/kernels/ops.py``): a site outside a
 kernel's contract runs the plain reference, which is decided from shapes
 and arguments alone, never by catching a kernel failure.
 
+Each wrapper calls its kernel through :func:`repro_torch.kernels.library.
+launch`: one opaque ``marvel::`` node in a traced program, the entry point
+itself in an eager call.
+
 Registrations carry ``platforms=("cuda",)``: ``backend="auto"`` picks a
 kernel only on a CUDA device.  Forced with ``backend="cuda"`` on CPU
 tensors, each kernel wrapper runs its plain version — the analogue of the
@@ -18,15 +22,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import dispatch
-from repro_torch.kernels import depthwise_conv as dw
-from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import fused_conv as fc
-from repro_torch.kernels import mac_matmul as mm
-from repro_torch.kernels import matmul_epilogue as me
+from repro_torch.kernels import library
 from repro_torch.kernels import pooling as pk
 from repro_torch.kernels import ref
-from repro_torch.kernels import residual_rmsnorm as rr
-from repro_torch.kernels import wkv_chunk as wk
 from repro_torch.kernels.common import (
     conv_kernel_eligible, conv_residual_fusable, depthwise_kernel_eligible,
     gemm_residual_fusable, sep_kernel_eligible,
@@ -65,7 +63,8 @@ def _cuda_mac_matmul_int8(x, quant):
     w_int8, scale = quant["w_int8"], quant["scale"]
     x2 = x.reshape(-1, x.shape[-1])
     x_int8, xs = _quant_rows(x2)
-    out = mm.mac_matmul_int8(x_int8, w_int8, scale.reshape(-1)) * xs
+    out = library.launch("mac_matmul_int8", x_int8, w_int8,
+                         scale.reshape(-1)) * xs
     return out.reshape(*x.shape[:-1], w_int8.shape[-1]).to(x.dtype)
 
 
@@ -96,8 +95,8 @@ def _cuda_fused_conv(x, w, b=None, *, stride=1, padding="SAME", groups=1,
     s = torch.ones(cout, **f32) if scale is None else scale.float()
     t = torch.zeros(cout, **f32) if shift is None else shift.float()
     # act((acc*dq + bias)*s + t + res) = act(acc*(dq*s) + (bias*s + t) + res)
-    out = fc.fused_conv_int8(x_int8, w_int8, dq * s, bias * s + t, residual,
-                             stride=stride, padding=padding, act=act)
+    out = library.launch("fused_conv", x_int8, w_int8, dq * s, bias * s + t,
+                         residual, stride=stride, padding=padding, act=act)
     return out.to(x.dtype)
 
 
@@ -129,8 +128,9 @@ def _cuda_depthwise_conv(x, w, b=None, *, stride=1, padding="SAME",
     s = torch.ones(c, **f32) if scale is None else scale.float()
     t = torch.zeros(c, **f32) if shift is None else shift.float()
     # same fold as fused_conv: act(acc*(dq*s) + (bias*s + t))
-    out = dw.depthwise_conv_int8(x_int8, w_int8, dq * s, bias * s + t,
-                                 stride=stride, padding=padding, act=act)
+    out = library.launch("depthwise_conv", x_int8, w_int8, dq * s,
+                         bias * s + t, stride=stride, padding=padding,
+                         act=act)
     return out.to(x.dtype)
 
 
@@ -166,9 +166,10 @@ def _cuda_sep_block(x, w_dw, w_pw, *, stride=1, padding="SAME",
     # the reference's folds, in its order: dw_act(acc_dw*(xs*wds*ds) + dt);
     # the pointwise stage contracts that f32 tile against the int8 weights,
     # so its fold is pw_act(acc_pw*(wps*ps) + (pb*ps + pt))
-    out = dw.sep_block_int8(
-        x_int8, wd_int8, xs * wds * ds, dt, wp_int8, wps * ps, pb * ps + pt,
-        stride=stride, padding=padding, dw_act=dw_act, pw_act=pw_act,
+    out = library.launch(
+        "sep_block", x_int8, wd_int8, xs * wds * ds, dt, wp_int8, wps * ps,
+        pb * ps + pt, stride=stride, padding=padding, dw_act=dw_act,
+        pw_act=pw_act,
     )
     return out.to(x.dtype)
 
@@ -179,8 +180,8 @@ def _cuda_matmul_epilogue(x, w, b=None, act="none", scale=None, shift=None,
         # mis-shaped skip tensor: stay on the algorithmically-fused oracle
         return ref.matmul_epilogue_ref(x, w, b, act=act, scale=scale,
                                        shift=shift, residual=residual)
-    return me.matmul_epilogue(x, w, b, act=act, scale=scale, shift=shift,
-                              residual=residual)
+    return library.launch("matmul_epilogue", x, w, b, act=act, scale=scale,
+                          shift=shift, residual=residual)
 
 
 def _cuda_pool(x, *, op, k=2, stride=2):
@@ -189,12 +190,13 @@ def _cuda_pool(x, *, op, k=2, stride=2):
     if not pk.fast_path_supported(x, op=op, k=k, stride=stride):
         return ref.pool_ref(x, op=op, k=k, stride=stride)
     if op == "global_avg":
-        return pk.global_avgpool(x)
-    return pk.windowed_pool(x, k=k, stride=stride, op=op)
+        return library.launch("global_avgpool", x)
+    return library.launch("windowed_pool", x, k=k, stride=stride,
+                          op=op)
 
 
 def _cuda_residual_rmsnorm(res, x, scale, eps=1e-6):
-    return rr.residual_rmsnorm(res, x, scale, eps=eps)
+    return library.launch("residual_rmsnorm", res, x, scale, eps=eps)
 
 
 def _cuda_flash_attention(q, k, v, *, causal=True, q_offset=0,
@@ -220,12 +222,12 @@ def _cuda_flash_attention(q, k, v, *, causal=True, q_offset=0,
         # int8 KV: the rank-1 dequant at the kernel boundary
         k = ref.dequant_kv(k, k_scale, q.dtype)
         v = ref.dequant_kv(v, v_scale, q.dtype)
-    return fa.flash_attention(q, k, v, causal=causal)
+    return library.launch("flash_attention", q, k, v, causal=causal)
 
 
 def _cuda_wkv_chunk(r, k, v, lw, u, s0, chunk):
     """zol (rnn_lm): the chunked WKV recurrence (S % chunk == 0)."""
-    return wk.wkv_chunk(r, k, v, lw, u, s0, chunk=chunk)
+    return library.launch("wkv_chunk", r, k, v, lw, u, s0, chunk=chunk)
 
 
 def register():

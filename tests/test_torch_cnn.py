@@ -6,8 +6,11 @@ through numpy: the port's logits match the reference's at v0 (relative L2
 <= 1e-4: f32 sums in another order) and at v4 on the kernels (``cuda``
 backend, whose wrappers run their plain versions on CPU tensors, against
 the reference's ``pallas`` backend in interpret mode; relative L2 <= 1e-3).
-For all six CNNs the profiler's site counts, the class and the recommended
-extensions equal the reference's; and at v4 every conv, GEMM, pool,
+For all six CNNs the profiler's site counts, its instruction counts and
+conv strides, the class and the recommended extensions equal the
+reference's, its FLOP and byte totals agree within 0.5% and 2%, and the
+report's rv32 ladder within 0.1% (its v0 -> v4 speedup within 0.01 of the
+reference's); and at v4 every conv, GEMM, pool,
 depthwise and separable-block site reaches its kernel wrapper with no
 plain fallback.  The mobile nets' and DenseNet121's logits are held in
 ``test_torch_mobile.py``.
@@ -21,11 +24,15 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.core import classes as jclasses  # noqa: E402
+from repro.core import costmodel as jcost  # noqa: E402
+from repro.core import pipeline as jpipeline  # noqa: E402
 from repro.core import dispatch as jdispatch  # noqa: E402
 from repro.core import profiler as jprofiler  # noqa: E402
 from repro.core.extensions import resolve_table as jresolve  # noqa: E402
 from repro.models import cnn as jcnn  # noqa: E402
 from repro_torch.core import classes as tclasses  # noqa: E402
+from repro_torch.core import costmodel as tcost  # noqa: E402
+from repro_torch.core import pipeline as tpipeline  # noqa: E402
 from repro_torch.core import dispatch as tdispatch  # noqa: E402
 from repro_torch.core import profiler as tprofiler  # noqa: E402
 from repro_torch.core.extensions import resolve_table as tresolve  # noqa: E402
@@ -37,6 +44,11 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
 
 V0_TOL, V4_TOL = 1e-4, 1e-3
+# the profile's totals against the reference's, and the rv32 ladder
+FLOPS_REL, HBM_REL, RV32_REL = 5e-3, 2e-2, 1e-3
+# the reference's rv32 v0 -> v4 speedup per CNN (its report at batch 1)
+RV32_SPEEDUP = {"lenet5": 2.081, "mobilenetv1": 2.077, "resnet50": 2.082,
+                "vgg16": 2.083, "mobilenetv2": 2.067, "densenet121": 2.079}
 SIX = ["lenet5", "vgg16", "resnet50", "mobilenetv1", "mobilenetv2",
        "densenet121"]
 # kernel launches per v4 forward: (fused_conv, matmul_epilogue, pool,
@@ -101,9 +113,41 @@ def test_profile_matches_reference(name):
                                torch.zeros((1, *in_shape)))
     assert dict(got.site_counts) == dict(want.site_counts)
     assert dict(got.site_bytes) == dict(want.site_bytes)
-    for op in ("conv", "dot", "mul(mac)"):
+    for op in ("conv", "dot", "mul(mac)", "mul_add(mac)", "fusedmac"):
         assert got.counts[op] == want.counts[op], op
+    assert dict(got.conv_strides) == dict(want.conv_strides)
     assert tclasses.recommend(got) == jclasses.recommend(want)
+    # the cost model's inputs: every exact term equal, the totals within
+    # FLOPS_REL / HBM_REL (the reference counts a 4-byte literal operand
+    # the port's scalar arguments do not have)
+    gi, wi = got.as_costmodel_inputs(), want.as_costmodel_inputs()
+    assert set(gi) == set(wi)
+    for key in wi:
+        if key == "flops":
+            assert gi[key] == pytest.approx(wi[key], rel=FLOPS_REL)
+        elif key == "hbm_bytes":
+            assert gi[key] == pytest.approx(wi[key], rel=HBM_REL)
+        else:
+            assert gi[key] == wi[key], key
+    for level in tcost.LEVELS:
+        ga, wa = tcost.apply_level(gi, level), jcost.apply_level(wi, level)
+        assert ga["int8_fraction"] == pytest.approx(wa["int8_fraction"],
+                                                    abs=1e-3)
+        assert tcost.rv32_cycles(gi, level) == pytest.approx(
+            jcost.rv32_cycles(wi, level), rel=RV32_REL)
+    cls, exts = tclasses.recommend(got)
+    report = tpipeline.build_report(got, cls, exts, {})
+    ref = jpipeline.build_report(want, *jclasses.recommend(want), {})
+    for level in tcost.LEVELS:
+        assert report.rv32_cycles[level] == pytest.approx(
+            ref.rv32_cycles[level], rel=RV32_REL)
+        assert report.rv32_energy_j[level] == pytest.approx(
+            ref.rv32_energy_j[level], rel=RV32_REL)
+    assert report.rv32_speedup_v4 == pytest.approx(ref.rv32_speedup_v4,
+                                                   abs=0.01)
+    assert report.rv32_speedup_v4 == pytest.approx(RV32_SPEEDUP[name],
+                                                   abs=0.01)
+    assert 1.7 <= report.rv32_speedup_v4 <= 2.4  # the paper's band
 
 
 @pytest.mark.parametrize("name", SIX)

@@ -68,6 +68,12 @@ same bits and leave the chain's ticket and flags 0; the kernel's shared
 memory equals ``smem_bytes``; a ragged S, a head size it is not built for
 and a working set over the block's shared memory are refused, not run
 plain.
+
+The kernels as ``marvel::`` ops (``kernels/library.py``): each op's fake
+implementation gives its real output's shape, dtype and strides at a main
+path shape; a v4 CNN program's rewritten graph launches each kernel as
+often as the program's eager executable and gives the same logits; a
+launcher patched after a bucket was traced is what its graph runs.
 """
 import numpy as np
 import pytest
@@ -1017,3 +1023,153 @@ def test_wkv_chunk_refuses_what_the_kernel_cannot_run(card):
     with pytest.raises(ValueError, match="shared memory"):
         ops._cuda_wkv_chunk(*args(256, 16), 256)
     assert wk.wkv_chunk.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the kernels as marvel:: ops, the rewritten programs
+# ---------------------------------------------------------------------------
+
+
+def _library_cases(dev):
+    """One call per ``marvel::`` kernel op at a shape the main path gives
+    it: {name: (args, kwargs)}."""
+    g = torch.Generator().manual_seed(5)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=g,
+                             dtype=torch.int8).to(dev)
+
+    def f(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g).to(dev, dtype)
+
+    bf = torch.bfloat16
+    return {
+        "fused_conv": ((i8(8, 16, 16, 64), i8(3, 3, 64, 64), f(64), f(64)),
+                       dict(stride=2, act="relu")),
+        "matmul_epilogue": ((f(8, 4, 4, 256), f(256, 128), f(128)),
+                            dict(act="relu", residual=f(8, 4, 4, 128))),
+        "windowed_pool": ((f(8, 32, 32, 64),), dict(k=3, stride=2)),
+        "global_avgpool": ((f(8, 2, 2, 2048),), {}),
+        "depthwise_conv": ((i8(8, 32, 32, 96), i8(3, 3, 96), f(96), f(96)),
+                           dict(stride=2, act="relu6")),
+        "sep_block": ((i8(8, 16, 16, 64), i8(3, 3, 64), f(64), f(64),
+                       i8(64, 128), f(128), f(128)), dict(dw_act="relu")),
+        "residual_rmsnorm": ((f(2, 8, 4096, dtype=bf), f(2, 8, 4096, dtype=bf),
+                              f(4096)), {}),
+        "flash_attention": ((f(1, 128, 8, 4, 128, dtype=bf),
+                             f(1, 128, 8, 128, dtype=bf),
+                             f(1, 128, 8, 128, dtype=bf)), {}),
+        "wkv_chunk": ((f(1, 128, 4, 64), f(1, 128, 4, 64), f(1, 128, 4, 64),
+                       -torch.rand((1, 128, 4, 64), generator=g).to(dev),
+                       f(4, 64), f(1, 4, 64, 64)), dict(chunk=64)),
+        "mac_matmul_int8": ((i8(64, 256), i8(256, 128), f(128).abs()), {}),
+    }
+
+
+def test_library_fakes_give_the_real_outputs(card):
+    """Each marvel:: kernel op's fake implementation gives its real
+    output's shape, dtype and strides (a graph traced from the fakes runs
+    the real ops)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import library
+
+    for name, (args, kwargs) in _library_cases(card).items():
+        op = library.OPS[name]
+        real = op(*args, **kwargs)
+        with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+            fake = op(*(mode.from_tensor(a) for a in args), **{
+                k: mode.from_tensor(v) if isinstance(v, torch.Tensor) else v
+                for k, v in kwargs.items()})
+        reals = real if isinstance(real, tuple) else (real,)
+        fakes = fake if isinstance(fake, tuple) else (fake,)
+        assert len(reals) == len(fakes), name
+        for r, fk in zip(reals, fakes):
+            assert (r.shape, r.dtype, r.stride(), r.device) == (
+                fk.shape, fk.dtype, fk.stride(), fk.device), name
+
+
+def _entry_launches():
+    """Every kernel entry point's launch counter."""
+    from repro_torch.kernels import depthwise_conv as dw
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_conv as fc
+    from repro_torch.kernels import mac_matmul as mm
+    from repro_torch.kernels import matmul_epilogue as me
+    from repro_torch.kernels import pooling as pk
+    from repro_torch.kernels import residual_rmsnorm as rr
+    from repro_torch.kernels import wkv_chunk as wk
+
+    entries = (fc.fused_conv_int8, me.matmul_epilogue, pk.windowed_pool,
+               pk.global_avgpool, dw.depthwise_conv_int8, dw.sep_block_int8,
+               rr.residual_rmsnorm, fa.flash_attention, wk.wkv_chunk,
+               mm.mac_matmul_int8)
+    return {fn.__name__: fn.launches for fn in entries}
+
+
+def _run_graph(graph, *args):
+    """A bucket's rewritten graph run as the program runs its bucket, the
+    plain versions' products in full f32."""
+    from repro_torch.kernels.common import full_f32
+
+    with torch.inference_mode(), full_f32():
+        return graph(*args)
+
+
+@pytest.mark.parametrize("name", ["resnet50", "mobilenetv2"])
+def test_rewritten_cnn_launches_as_the_unrewritten(card, name):
+    """A v4 program's rewritten graph launches each kernel as often as the
+    program's eager executable (the unrewritten function), and computes
+    the same logits (the same kernels on the same inputs)."""
+    from repro_torch import marvel
+    from repro_torch.models.cnn import get_cnn
+
+    init, apply, in_shape = get_cnn(name)
+    params = init(torch.Generator().manual_seed(0), device=card)
+    x = torch.from_numpy(_rng(6).standard_normal((8, *in_shape),
+                                                 np.float32)).to(card)
+    prog = marvel.compile(apply, x, params=params, level="v4", quantize=True)
+    graph = prog.baked_graph(x)
+    assert prog.rewrite_baked and graph is not None
+    launched = []
+    for run in (lambda: _run_graph(graph, x), lambda: prog(x)):
+        run()
+        before = _entry_launches()
+        out = run()
+        torch.cuda.synchronize()
+        launched.append(({k: v - before[k] for k, v in
+                          _entry_launches().items()}, out.cpu()))
+    (rw, got), (un, want) = launched
+    assert rw == un and sum(rw.values()) > 0, (rw, un)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_a_patched_launch_is_what_the_baked_graph_runs(card):
+    """The baked graph reaches the kernel through its module's attribute
+    at call time: a launcher patched after the bucket was traced is the
+    one that runs."""
+    from repro_torch import marvel
+    from repro_torch.kernels import fused_conv as fc
+    from repro_torch.models.cnn import get_cnn
+
+    init, apply, in_shape = get_cnn("lenet5")
+    params = init(torch.Generator().manual_seed(0), device=card)
+    x = torch.from_numpy(_rng(7).standard_normal((8, *in_shape),
+                                                 np.float32)).to(card)
+    prog = marvel.compile(apply, x, params=params, level="v4")
+    graph = prog.baked_graph(x)
+    assert graph is not None
+    want = _run_graph(graph, x)
+    real, seen = fc._launch, []
+
+    def planted(*args):
+        seen.append(args[0].shape)
+        return real(*args) + 1.0
+
+    fc._launch = planted
+    try:
+        got = _run_graph(graph, x)
+    finally:
+        fc._launch = real
+    assert len(seen) == 2  # LeNet-5*'s two int8 convs
+    assert not torch.equal(got, want)
+    torch.testing.assert_close(_run_graph(graph, x), want, rtol=0, atol=0)

@@ -10,7 +10,9 @@ not reach the kernel.  RoPE and the int8 KV quantizer are held on their own
 (the codes exactly).  Then the qwen3-8b smoke variant (2 layers, d 128),
 with the reference's own init carried over by ``params_from_jax``:
 ``forward_lm`` logits at v0, v2 and v4 against the reference at the same
-level, its classification, tables and site counts, and the continuous-
+level, its classification, tables, site counts and report (the cost
+model's site-derived inputs and loop trips equal, the rv32 ladder within
+0.1%, the rewrite stats equal), and the continuous-
 batching engine's greedy streams against the reference engine's (f32
 params, so bf16 ties cannot decide an argmax), with and without int8 KV.
 One starcoder2-3b smoke forward covers the non-gated GELU MLP with biases.
@@ -40,6 +42,7 @@ import numpy as np  # noqa: E402
 import kernel_cases as kc  # noqa: E402
 from repro import marvel as jmarvel  # noqa: E402
 from repro.configs.base import RunConfig as JRun  # noqa: E402
+from repro.core import rewrite as jrewrite  # noqa: E402
 from repro.configs.registry import get_arch as jget_arch  # noqa: E402
 from repro.configs.registry import smoke_variant as jsmoke  # noqa: E402
 from repro.core.extensions import resolve_table as jresolve  # noqa: E402
@@ -106,6 +109,32 @@ def t(a, dtype=None):
 def n(x):
     return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(
         x, np.float32)
+
+# the profile's site-derived cost-model inputs (equal exactly) and the
+# rv32 ladder (within 0.1%) against the reference's report
+SITE_INPUTS = ("matmul_flops", "loop_iters", "residual_norm_bytes",
+               "epilogue_bytes", "conv_epilogue_bytes", "dw_flops",
+               "dw_epilogue_bytes", "sep_intermediate_bytes",
+               "acc_bytes_saved", "acc_flops", "pool_flops",
+               "pool_saved_bytes", "attn_score_bytes", "attn_flops",
+               "wkv_flops", "rmsnorm_epilogue_bytes")
+
+
+def assert_report_matches(tp, jp, tokens):
+    got, want = tp.report, jp.report
+    gi = got.profile.as_costmodel_inputs()
+    wi = want.profile.as_costmodel_inputs()
+    for key in SITE_INPUTS:
+        assert gi[key] == wi[key], key
+    assert gi["loop_iters"] > 0
+    for level in ("v0", "v1", "v2", "v3", "v4"):
+        assert got.rv32_cycles[level] == pytest.approx(
+            want.rv32_cycles[level], rel=1e-3), level
+    assert got.rv32_speedup_v4 == pytest.approx(want.rv32_speedup_v4,
+                                                rel=1e-3)
+    _, stats = jrewrite.rewrite(jp.fn, jnp.asarray(tokens))
+    assert got.rewrite_ok and got.rewrite_stats == stats
+
 
 
 def grid(impl):
@@ -367,6 +396,8 @@ def test_qwen3_classifies_and_resolves_as_the_reference(qwen):
                               "matmul_epilogue": "cuda", "sep_block": "cuda",
                               "flash_attention": "cuda", "wkv_chunk": "cuda",
                               "mac_matmul_int8": "cuda"}
+    # the reports: the scan's trip count multiplies what its body records
+    assert_report_matches(tp, jp, qwen.tokens)
 
 
 def test_starcoder2_smoke_forward_matches_reference_at_v4():

@@ -13,8 +13,10 @@ chunks), as the reference's ``tests/test_recurrent_decode.py`` runs it:
 * the port's chunked forward against its own decode (the invariant of
   ``test_recurrent_decode.py``);
 * ``params_from_jax`` bit for bit, ``ln0_*`` and the f32 ``w0`` and ``u``
-  included; the site counts and bytes, the class (``rnn_lm``) and the
-  resolved tables equal to the reference's ``marvel.compile``;
+  included; the site counts and bytes, the class (``rnn_lm``), the
+  resolved tables and the report (site-derived cost-model inputs and loop
+  trips equal, the rv32 ladder within 0.1%, the rewrite stats) equal to
+  the reference's ``marvel.compile``;
 * the slot-reuse repair: a request admitted to a reclaimed slot starts from
   a zero recurrent state, and its first logits and its stream equal a
   fresh single-request decode of the same prompt.
@@ -30,10 +32,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro import marvel as jmarvel  # noqa: E402
 from repro.configs.base import RunConfig as JRun  # noqa: E402
+from repro.core import rewrite as jrewrite  # noqa: E402
 from repro.configs.registry import get_arch as jget_arch  # noqa: E402
 from repro.configs.registry import smoke_variant as jsmoke  # noqa: E402
 from repro.core.extensions import resolve_table as jresolve  # noqa: E402
@@ -55,6 +59,32 @@ LEVELS = ["v0", "v1", "v3", "v4"]
 def n(x):
     return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(
         x, np.float32)
+
+# the profile's site-derived cost-model inputs (equal exactly) and the
+# rv32 ladder (within 0.1%) against the reference's report
+SITE_INPUTS = ("matmul_flops", "loop_iters", "residual_norm_bytes",
+               "epilogue_bytes", "conv_epilogue_bytes", "dw_flops",
+               "dw_epilogue_bytes", "sep_intermediate_bytes",
+               "acc_bytes_saved", "acc_flops", "pool_flops",
+               "pool_saved_bytes", "attn_score_bytes", "attn_flops",
+               "wkv_flops", "rmsnorm_epilogue_bytes")
+
+
+def assert_report_matches(tp, jp, tokens):
+    got, want = tp.report, jp.report
+    gi = got.profile.as_costmodel_inputs()
+    wi = want.profile.as_costmodel_inputs()
+    for key in SITE_INPUTS:
+        assert gi[key] == wi[key], key
+    assert gi["loop_iters"] > 0
+    for level in ("v0", "v1", "v2", "v3", "v4"):
+        assert got.rv32_cycles[level] == pytest.approx(
+            want.rv32_cycles[level], rel=1e-3), level
+    assert got.rv32_speedup_v4 == pytest.approx(want.rv32_speedup_v4,
+                                                rel=1e-3)
+    _, stats = jrewrite.rewrite(jp.fn, jnp.asarray(tokens))
+    assert got.rewrite_ok and got.rewrite_stats == stats
+
 
 
 class Smoke:
@@ -181,6 +211,8 @@ def test_rwkv_classifies_and_resolves_as_the_reference(rwkv):
     for pat in ("mac_matmul_int8", "matmul_epilogue", "wkv_chunk"):
         assert tp.table[pat] == "cuda", pat
     assert "residual_rmsnorm" not in tp.table  # no add2i on this ladder
+    # the reports: the scan's trip count multiplies what its body records
+    assert_report_matches(tp, jp, rwkv.tokens)
 
 
 def test_rwkv_refuses_int8_kv_with_the_references_message(rwkv):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The port's quickest proof on one CUDA card: build the kernels, hold each
 against its plain PyTorch version, then serve ResNet50, MobileNetV2,
-qwen3-8b and rwkv6-1.6b at v4.
+qwen3-8b and rwkv6-1.6b at v4, and ResNet50 and qwen3-8b supervised, with
+workers killed mid-wave.
 
     python3 chip_smoke.py
 
@@ -163,6 +164,35 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    under the v4 rnn_lm table, each equal to the plain int32 sum; each case
    timed beside ``torch._int_mm`` and the scale (its operands zero-padded
    to what ``_int_mm`` takes) and its bound;
+10a. supervised serving, in process: a ``Supervisor`` over 2 workers of the
+   ResNet50 v4 program (``max_batch=8``).  A recorded 32-request wave
+   (``BatchRecorder`` at the program boundary: each batch's counts from 0,
+   ``PER_FORWARD``, every launch held, its logits and the probabilities
+   delivered to its requests against the CPU program on the same batch
+   within ``E2E_LIMIT``); a concurrent wave on the supervisor's defaults
+   with the counts from 0 (the counters are bumped from both compute
+   threads: the totals must come to batches x per-forward) and 0 restarts;
+   a wave with worker 0 killed (``kill()``) once it owns requests: all 32
+   resolved exactly once, at least one failover, the fleet healed to 2, and
+   the replacement's warmup replay adds no bucket; ``prometheus()``
+   printed;
+10b. two process-isolated ResNet50 v4 workers (``WorkerActor``, spawned)
+   sharing the card: each child's pid, kernel-library load time, bring-up
+   times and peak allocation printed; a fault-free 32-request wave (0
+   restarts; how many labels agree with 10a's fleet on the same images,
+   the int8 activation scale being per batch); a 48-request wave with
+   worker 0's pid SIGKILLed once it owns requests: all resolved exactly
+   once, a process restart after the dead child is reaped, the fleet
+   healed, and a 16-request wave through the replacement with 0 recompiles
+   after its warmup;
+10c. two process-isolated qwen3-8b v4 workers at full width and depth
+   (bf16, int8 KV, 8 slots, ``max_len=64``; ``LM_SUPERVISOR``'s heartbeat
+   floor) on the one card: a fault-free 32-request wave of 16 tokens each
+   with 0 restarts (tokens/s, TTFT, inter-token p50/p99 printed), then the
+   same wave with worker 0 SIGKILLed mid-decode: every request finishes
+   with its full prompt replayed on a sibling; once the fleet is stopped,
+   the same program is built here and every stream of both waves must
+   equal a static decode from a fresh state in the lane it had;
 9. no compiled program failed to rewrite a bucket whose graph was asked
    for (``rewrite_fallbacks``); the
    ``{"kernels": [...]}`` line (each kernel on the forward its entry
@@ -1080,9 +1110,10 @@ def record_launches(prog, *x):
     return seen, counts, out
 
 
-def hold(recorded, names, timed, extras=None):
+def hold(recorded, names, timed, extras=None, quiet=False):
     """Hold every recorded launch of the ``names`` kernels (and ``extras``)
-    against its plain version; with ``timed``, time the first launch of
+    against its plain version (``quiet``: without a line per shape); with
+    ``timed``, time the first launch of
     each shape and sum the times over the call's launches.  ``bound_ms`` is
     the least time of the launches run one after another: the sum over them
     of each launch's bound; ``t_bytes`` and ``t_ops`` sum its two terms."""
@@ -1103,15 +1134,16 @@ def hold(recorded, names, timed, extras=None):
             times = ("" if ms is None else
                      f" ms={ms:.4f} plain_ms={plain:.4f} library_ms="
                      f"{'null' if lib is None else f'{lib:.4f}'}")
-            log(f"  {label}: x{cnt}/forward max_abs_err={err:.3e} [{tol}]"
-                f"{times} bound_ms={b_ms:.5f} ({by})")
+            if not quiet:
+                log(f"  {label}: x{cnt}/forward max_abs_err={err:.3e} "
+                    f"[{tol}]{times} bound_ms={b_ms:.5f} ({by})")
             for args2 in later:  # the same shape's other launches, untimed
                 _, e, _, _, _, _, (b2, _, tb2, to2) = case_fn(args2, False)
                 err = max(err, e)
                 agg["bound_ms"] += b2 - b_ms
                 agg["t_bytes"] += tb2 - tb
                 agg["t_ops"] += to2 - to
-            if later:
+            if later and not quiet:
                 log(f"    and {len(later)} more launches of that shape held: "
                     f"max_abs_err={err:.3e}")
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
@@ -1647,16 +1679,17 @@ def tree_numel(tree) -> int:
 def serve_streams_check(engine, params, cfg, run, prompts, placed, done,
                         kv_quant=None):
     """Every served stream against a static decode from a fresh state
-    through the engine's own decode step, each prompt in the lane (slot) it
-    had in the engine: group g holds the g-th occupant of each slot of a
-    bucket, the other lanes a filler prompt.  Every op of a decode step is
-    row-wise, so a lane's tokens depend on its own prompt alone."""
+    through the decode step of ``engine`` (a ``ContinuousBatchEngine`` of
+    the serving program), each prompt in the lane (slot) it had when served:
+    group g holds the g-th occupant of each slot of a bucket, the other
+    lanes a filler prompt.  Every op of a decode step is row-wise, so a
+    lane's tokens depend on its own prompt alone."""
     import torch
     from repro_torch.models import transformer as T
     from repro_torch.runtime.lm_server import static_decode
 
     by_uid = {r.uid: r for r in done}
-    slots = engine.engine.slots
+    slots = engine.slots
     checked = 0
     for bucket in sorted({b for _, b, _ in placed}):
         occupants: dict[int, list[int]] = {}
@@ -1669,7 +1702,7 @@ def serve_streams_check(engine, params, cfg, run, prompts, placed, done,
             st = T.init_decode_state(params, cfg, run, batch=slots,
                                      max_len=bucket, kv_quant=kv_quant)
             streams = static_decode(
-                lambda s_, t_: engine.engine._decode_fn(params, s_, t_), st,
+                lambda s_, t_: engine._decode_fn(params, s_, t_), st,
                 lane_prompts, LM_MAX_NEW, cfg.vocab)
             for u, stream in zip(lanes, streams):
                 if u:
@@ -2045,8 +2078,8 @@ def lm_phases(dev, card):
         f"{m['intertoken_p99_ms']:.2f} ms, {steps} decode steps, "
         f"0 compile misses after warmup, on {card}")
     log(f"{LM_ARCH} v4 serve: launches on the main path: {launches}")
-    checked = serve_streams_check(engine, params, cfg, run, prompts, placed,
-                                  done, kv_quant="int8")
+    checked = serve_streams_check(engine.engine, params, cfg, run, prompts,
+                                  placed, done, kv_quant="int8")
     assert checked == N_REQUESTS, checked
     log(f"{LM_ARCH} v4 serve: all {checked} request streams equal a static "
         f"decode of the same prompts from a fresh state in the same lanes "
@@ -2320,8 +2353,8 @@ def rwkv_phases(dev, card):
         f"inter-token p50 {m['intertoken_p50_ms']:.2f} ms p99 "
         f"{m['intertoken_p99_ms']:.2f} ms, {steps} decode steps, 0 kernel "
         f"launches and 0 compile misses after warmup, on {card}")
-    checked = serve_streams_check(engine, params, cfg, run, prompts, placed,
-                                  done)
+    checked = serve_streams_check(engine.engine, params, cfg, run, prompts,
+                                  placed, done)
     assert checked == N_REQUESTS, checked
     log(f"{RWKV_ARCH} v4 serve: all {checked} request streams equal a "
         f"static decode of the same prompts from a fresh state in the same "
@@ -2427,6 +2460,445 @@ def mac_phase(dev, card):
         f"{res['mac_matmul_int8']['plain_ms']:.4f} ms, torch._int_mm "
         f"{res['mac_matmul_int8']['library_ms']:.4f} ms in all")
     return res, launches["mac_matmul_int8"]
+
+
+# ---------------------------------------------------------------------------
+# supervised serving: in-process and process-isolated workers
+# ---------------------------------------------------------------------------
+
+SUP_WORKERS = 2
+RATE_WAVES = 3  # fault-free waves timed per fleet
+SUP_WAVE, SUP_KILL_WAVE, SUP_SECOND_WAVE = 32, 48, 16
+HEAL_S = 300.0  # bound on the wait for a fleet to heal (a qwen3-8b child
+# draws 15.1 GB and compiles before its HELLO)
+
+
+class BatchRecorder:
+    """A CNN program seen at the engines' boundary: while ``recording``,
+    each batch it runs records its launches (every counter from 0 just
+    before, read just after; ``record_launches``) and keeps its input, the
+    counts, the recorded launches and the logits.  Calls serialize on a
+    lock: the recorder patches the kernel modules while it records."""
+
+    def __init__(self, prog):
+        import threading
+
+        self.prog = prog
+        self.recording = False
+        self.batches: list = []
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self.prog, name)
+
+    def serve(self, mode="async", **kw):
+        from repro_torch.runtime.cnn_server import AsyncCnnEngine
+
+        assert mode == "async", mode
+        return AsyncCnnEngine(self, **kw)
+
+    def __call__(self, x):
+        if not self.recording:
+            return self.prog(x)
+        import torch
+
+        with self._lock:
+            rec, counts, out = record_launches(self.prog, x)
+            self.batches.append((torch.as_tensor(x).clone(), counts, rec,
+                                 out.clone()))
+        return out
+
+
+async def healed(sup, n, restarts=1, timeout_s=HEAL_S):
+    """True once the supervisor has made ``restarts`` restarts and ``n``
+    workers are healthy again (False after ``timeout_s``)."""
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout_s
+    while (sup.metrics()["aggregate"]["restarts"] < restarts
+           or len(sup.healthy_workers()) != n):
+        if loop.time() >= deadline:
+            return False
+        await asyncio.sleep(0.05)
+    return True
+
+
+async def kill_when_busy(engine, kill, settle_s=0.0, timeout_s=60.0):
+    """Kill a worker once it owns requests in flight (``settle_s`` later):
+    the kill lands mid-wave.  Returns the owned count at the kill."""
+    loop = asyncio.get_running_loop()
+    deadline = loop.time() + timeout_s
+    while engine.outstanding == 0:
+        assert loop.time() < deadline, "the worker never took a request"
+        await asyncio.sleep(0.001)
+    if settle_s:
+        await asyncio.sleep(settle_s)
+    owned = engine.outstanding
+    kill()
+    return owned
+
+
+def fmt_rates(rates) -> str:
+    return " / ".join(f"{r:.1f}" for r in rates)
+
+
+def exactly_once(results, n):
+    assert len(results) == n, len(results)
+    assert all(r.error is None for r in results), "a request failed"
+    assert len({r.uid for r in results}) == n, "a request resolved twice"
+
+
+def softmax(z):
+    import torch
+
+    return torch.softmax(z.float(), dim=-1)
+
+
+def sup_inproc_phase(prog, apply, in_shape, params_cpu, card):
+    """10a: a Supervisor over 2 in-process ResNet50 v4 workers of one
+    program.  A recorded 32-request wave: each batch's launches counted
+    (PER_FORWARD) and held, its logits and the probabilities delivered to
+    its requests held against the CPU program on the same batch.  A
+    concurrent wave with the counts from 0: the totals come to batches x
+    per-forward (the counters are bumped from both compute threads), 0
+    restarts.  A wave with worker 0 killed mid-wave: every request resolved
+    exactly once, failover, the fleet healed, the replacement's warmup
+    replay adds no bucket.  Returns the labels of the first wave."""
+    import numpy as np
+    import torch
+    from repro_torch import marvel
+    from repro_torch.launch.serve import random_images
+    from repro_torch.runtime.supervisor import Supervisor
+
+    label = "resnet50 v4"
+    images = random_images(in_shape, SUP_WAVE)
+    recorder = BatchRecorder(prog)
+    # recording serializes the workers and clones every launch's inputs, so
+    # a heartbeat may wait behind several slowed batches: this fleet's
+    # beats are floored at 1 s; the serving fleet below keeps the defaults
+    rec_sup = Supervisor(heartbeat_floor_ms=1000.0)
+    rec_sup.register("cnn", recorder, workers=SUP_WORKERS, warmup=in_shape,
+                     max_batch=BATCH)
+    sup = Supervisor()
+    sup.register("cnn", prog, workers=SUP_WORKERS, warmup=in_shape,
+                 max_batch=BATCH)
+    cpu_prog = marvel.compile(apply, np.zeros((1, *in_shape), np.float32),
+                              params=params_cpu, level="v4", backend="cuda",
+                              device="cpu")
+
+    async def waves():
+        async with rec_sup:  # the workers warm up unrecorded
+            recorder.recording = True
+            first = await rec_sup.submit_wave(images)
+            recorder.recording = False
+            assert len(recorder.batches) == rec_sup.metrics()[
+                "aggregate"]["batches"], "a batch went unrecorded"
+        engine = prog.serve(mode="async", max_batch=BATCH)
+        async with engine:  # the same program, one engine, unsupervised
+            engine.warmup(in_shape)
+            single = []
+            for _ in range(RATE_WAVES):
+                t0 = time.perf_counter()
+                await engine.submit_wave(images)
+                single.append(SUP_WAVE / (time.perf_counter() - t0))
+        one = Supervisor()  # one supervised worker: routing, no second thread
+        one.register("cnn", prog, workers=1, warmup=in_shape,
+                     max_batch=BATCH)
+        async with one:
+            one_rates = []
+            for _ in range(RATE_WAVES):
+                t0 = time.perf_counter()
+                exactly_once(await one.submit_wave(images), SUP_WAVE)
+                one_rates.append(SUP_WAVE / (time.perf_counter() - t0))
+        async with sup:
+            with counted() as launches:
+                t0 = time.perf_counter()
+                second = await sup.submit_wave(images)
+                dt = time.perf_counter() - t0
+            agg1 = sup.metrics()["aggregate"]
+            rates = [SUP_WAVE / dt]
+            for _ in range(RATE_WAVES - 1):
+                t0 = time.perf_counter()
+                exactly_once(await sup.submit_wave(images), SUP_WAVE)
+                rates.append(SUP_WAVE / (time.perf_counter() - t0))
+            misses = prog.cache_misses
+            w0 = sup.workers["cnn/0"]
+            killer = asyncio.ensure_future(kill_when_busy(
+                w0.engine, lambda: w0.engine.kill("killed mid-wave")))
+            third = await sup.submit_wave(images)
+            owned = await killer
+            ok = await healed(sup, SUP_WORKERS)
+            fourth = await sup.submit_wave(images[:SUP_SECOND_WAVE])
+            return (first, second, dt, launches, agg1, rates, single,
+                    one_rates, misses, owned, ok, third, fourth,
+                    sup.metrics()["aggregate"], sup.prometheus())
+
+    (first, second, dt, launches, agg1, rates, single, one_rates, misses,
+     owned, ok, third, fourth, agg, prom) = asyncio.run(waves())
+
+    # the recorded wave: every batch counted, held, and its answers
+    exactly_once(first, SUP_WAVE)
+    by_row = {images[r.uid].tobytes(): r for r in first}
+    limit = E2E_LIMIT[label]
+    worst_logits = worst_probs = 0.0
+    worst_err = {}
+    for x, counts, rec, logits in recorder.batches:
+        check_counts(label, counts)
+        for k, held_k in hold(rec, PER_FORWARD[label], timed=False,
+                              quiet=True).items():
+            worst_err[k] = max(worst_err.get(k, 0.0), held_k["max_abs_err"])
+        want = cpu_prog(x.cpu())
+        worst_logits = max(worst_logits, rel_l2(logits.cpu(), want))
+        rows = [(i, by_row[x[i].cpu().numpy().tobytes()])
+                for i in range(x.shape[0])
+                if x[i].cpu().numpy().tobytes() in by_row]
+        got = torch.from_numpy(np.stack([r.probs for _, r in rows]))
+        ref_probs = softmax(want)[[i for i, _ in rows]]
+        worst_probs = max(worst_probs, rel_l2(got, ref_probs))
+        assert torch.allclose(got, softmax(logits.cpu())[[i for i, _ in rows]],
+                              rtol=1e-5, atol=1e-6), "probs not delivered"
+    n_rec = len(recorder.batches)
+    assert n_rec >= SUP_WAVE // BATCH, n_rec
+    assert worst_logits <= limit and worst_probs <= limit, (
+        worst_logits, worst_probs)
+    log(f"10a {label}, {SUP_WORKERS} in-process workers: recorded wave of "
+        f"{SUP_WAVE} in {n_rec} batches, each with {PER_FORWARD[label]} "
+        f"launches, every launch held against its plain version (worst "
+        f"|err| {worst_err}); logits vs "
+        f"the CPU program on the same batch: worst relative L2 "
+        f"{worst_logits:.3e}, delivered probabilities {worst_probs:.3e} "
+        f"(limit {limit:g})")
+
+    # the concurrent wave: the counters' totals from both compute threads
+    exactly_once(second, SUP_WAVE)
+    n_batches = agg1["batches"]
+    check_counts(label, launches, n_batches)
+    assert agg1["restarts"] == 0 and agg1["errors"] == 0, agg1
+    log(f"10a {label}: concurrent wave of {SUP_WAVE} in {n_batches} batches "
+        f"across {SUP_WORKERS} workers in {dt * 1e3:.1f} ms: "
+        f"{SUP_WAVE / dt:.1f} req/s, p50 {agg1['p50_latency_ms']:.2f} ms, "
+        f"p99 {agg1['p99_latency_ms']:.2f} ms (worst worker), 0 restarts; "
+        f"launch totals = {n_batches} batches x per-forward: "
+        f"{ {k: launches[k] for k in PER_FORWARD[label]} } on {card}")
+    log(f"10a {label}: {RATE_WAVES} fault-free waves of {SUP_WAVE}: "
+        f"{fmt_rates(rates)} req/s supervised ({SUP_WORKERS} in-process "
+        f"workers); the same program in the same run through one "
+        f"supervised worker {fmt_rates(one_rates)}, through one engine "
+        f"unsupervised {fmt_rates(single)} req/s")
+
+    # the kill wave
+    exactly_once(third, SUP_WAVE)
+    exactly_once(fourth, SUP_SECOND_WAVE)
+    assert ok, "the in-process fleet never healed"
+    assert agg["failovers"] >= 1 and agg["restarts"] >= 1, agg
+    assert prog.cache_misses == misses, "the replacement added a bucket"
+    log(f"10a {label}: worker 0 killed with {owned} requests in flight: "
+        f"{SUP_WAVE} resolved exactly once, {agg['failovers']} failovers, "
+        f"{agg['restarts']} restart, fleet healed to "
+        f"{agg['healthy_workers']}; the replacement served "
+        f"{SUP_SECOND_WAVE} more with 0 new buckets")
+    log("10a prometheus():\n" + prom.rstrip())
+    return [r.label for r in first]
+
+
+def child_line(engine) -> str:
+    h = engine.hello
+    peak = engine.metrics().get("device_memory_peak_bytes")
+    load = h.get("kernel_load_s")
+    return (f"pid {engine.pid} on {h.get('devices')}: kernel library loaded "
+            f"in {'n/a' if load is None else f'{load:.3f} s'}, program "
+            f"{h.get('program_s', 0):.1f} s, warmup {h.get('warmup_s', 0):.1f}"
+            f" s, spawn to HELLO {engine.spawn_to_hello_s:.1f} s, peak "
+            f"allocated {'n/a' if peak is None else f'{peak / 1e9:.2f} GB'}")
+
+
+async def refresh(sup):
+    """One PING to every live worker: their metrics as of now."""
+    for wh in sup.workers.values():
+        if wh.engine.is_alive:
+            r = wh.engine.ping()
+            if asyncio.iscoroutine(r):
+                await r
+
+
+def sup_process_cnn_phase(in_shape, fleet_labels, card):
+    """10b: two process-isolated ResNet50 v4 workers sharing the card; a
+    48-request wave with worker 0's pid SIGKILLed once it owns requests in
+    flight; a second 16-request wave through the replacement."""
+    import signal
+
+    from repro_torch.launch.serve import random_images
+    from repro_torch.runtime.actor import cnn_program_factory
+    from repro_torch.runtime.supervisor import Supervisor
+
+    model = "resnet50"
+    images = random_images(in_shape, SUP_KILL_WAVE)
+    sup = Supervisor()
+    sup.register(model, None, workers=SUP_WORKERS, warmup=in_shape,
+                 max_batch=BATCH, isolation="process",
+                 program_factory=cnn_program_factory,
+                 factory_kwargs=dict(model=model))
+
+    async def waves():
+        t0 = time.perf_counter()
+        async with sup:
+            up = time.perf_counter() - t0
+            await refresh(sup)
+            lines = [child_line(wh.engine) for wh in sup.workers.values()]
+            rates = []
+            for _ in range(RATE_WAVES):
+                t1 = time.perf_counter()
+                clean = await sup.submit_wave(images[:SUP_WAVE])
+                rates.append(SUP_WAVE / (time.perf_counter() - t1))
+                exactly_once(clean, SUP_WAVE)
+            await refresh(sup)
+            agg0 = sup.metrics()["aggregate"]
+            w0 = sup.workers[f"{model}/0"]
+            old = w0.engine
+            killer = asyncio.ensure_future(kill_when_busy(
+                old, lambda: os.kill(old.pid, signal.SIGKILL)))
+            t1 = time.perf_counter()
+            first = await sup.submit_wave(images)
+            dt = time.perf_counter() - t1
+            owned = await killer
+            ok = await healed(sup, SUP_WORKERS)
+            second = await sup.submit_wave(images[:SUP_SECOND_WAVE])
+            await refresh(sup)
+            new = sup.workers[f"{model}/0"].engine
+            lines.append(child_line(new))
+            return (up, lines, clean, rates, agg0, old, new, first, dt,
+                    owned, ok, second, new.metrics(),
+                    sup.metrics()["aggregate"])
+
+    (up, lines, clean, rates, agg0, old, new, first, dt, owned, ok, second,
+     new_m, agg) = asyncio.run(waves())
+    assert agg0["restarts"] == 0, agg0
+    exactly_once(first, SUP_KILL_WAVE)
+    exactly_once(second, SUP_SECOND_WAVE)
+    assert ok, "the process fleet never healed"
+    assert old.exitcode == -signal.SIGKILL, old.exitcode
+    assert new.pid != old.pid
+    assert agg["worker_process_restarts"] >= 1 and agg["failovers"] >= 1, agg
+    assert new_m["recompiles_after_warmup"] == 0, new_m
+    agree = sum(r.label == fleet_labels[i] for i, r in enumerate(clean))
+    log(f"10b {model} v4, {SUP_WORKERS} process-isolated workers on one "
+        f"card (fleet up in {up:.1f} s):")
+    for line in lines:
+        log(f"  child {line}")
+    log(f"10b: {RATE_WAVES} fault-free waves of {SUP_WAVE}: "
+        f"{fmt_rates(rates)} req/s, {agg0['batches']} batches in all, "
+        f"p50 {agg0['p50_latency_ms']:.2f} ms p99 "
+        f"{agg0['p99_latency_ms']:.2f} ms (worst worker), 0 restarts; "
+        f"{agree} of {SUP_WAVE} labels of the last agree "
+        f"with 10a's fleet on the same images (the int8 activation scale is "
+        f"per batch)")
+    log(f"10b: {SUP_KILL_WAVE} requests in {dt * 1e3:.1f} ms with worker 0 "
+        f"(pid {old.pid}) SIGKILLed holding {owned} in flight: all resolved "
+        f"exactly once, {agg['failovers']} failovers, "
+        f"{agg['worker_process_restarts']} process restart (exit code "
+        f"{old.exitcode}), fleet healed; the replacement (pid {new.pid}) "
+        f"served {SUP_SECOND_WAVE} more with 0 recompiles after warmup, on "
+        f"{card}")
+
+
+def sup_process_lm_phase(card):
+    """10c: two process-isolated qwen3-8b v4 workers (full width and depth,
+    bf16, int8 KV, 8 slots, max_len 64) on the one card: a fault-free
+    32-request wave (0 restarts), then a wave with worker 0 SIGKILLed
+    mid-decode; every stream of both equal to a static decode from a fresh
+    state in its lane, through the same program built in this process."""
+    import signal
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import LM_SUPERVISOR, lm_prompts
+    from repro_torch.runtime.actor import lm_program_factory
+    from repro_torch.runtime.supervisor import Supervisor
+
+    arch = LM_ARCH
+    factory_kwargs = dict(arch=arch, smoke=False, global_batch=LM_SLOTS)
+    prompts = lm_prompts(get_arch(arch).vocab, N_REQUESTS)
+    engine_kwargs = dict(slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                         kv_quant="int8")
+    sup = Supervisor(**LM_SUPERVISOR)
+    sup.register(arch, None, workers=SUP_WORKERS, mode="lm", warmup=(),
+                 isolation="process", program_factory=lm_program_factory,
+                 factory_kwargs=factory_kwargs, **engine_kwargs)
+
+    async def waves():
+        t0 = time.perf_counter()
+        async with sup:
+            up = time.perf_counter() - t0
+            await refresh(sup)
+            lines = [child_line(wh.engine) for wh in sup.workers.values()]
+            t1 = time.perf_counter()
+            first = await sup.submit_wave(prompts, max_new_tokens=LM_MAX_NEW)
+            dt = time.perf_counter() - t1
+            await refresh(sup)
+            agg1 = sup.metrics()["aggregate"]
+            old = sup.workers[f"{arch}/0"].engine
+            killer = asyncio.ensure_future(kill_when_busy(
+                old, lambda: os.kill(old.pid, signal.SIGKILL),
+                settle_s=0.5))
+            second = await sup.submit_wave(prompts,
+                                           max_new_tokens=LM_MAX_NEW)
+            owned = await killer
+            ok = await healed(sup, SUP_WORKERS)
+            await refresh(sup)
+            new = sup.workers[f"{arch}/0"].engine
+            lines.append(child_line(new))
+            return (up, lines, first, dt, agg1, old, new, second, owned,
+                    ok, sup.metrics()["aggregate"])
+
+    (up, lines, first, dt, agg1, old, new, second, owned, ok,
+     agg) = asyncio.run(waves())
+    for results in (first, second):
+        exactly_once(results, N_REQUESTS)
+        assert all(len(r.generated) == LM_MAX_NEW for r in results)
+    assert agg1["restarts"] == 0, agg1
+    assert ok, "the LM fleet never healed"
+    assert old.exitcode == -signal.SIGKILL, old.exitcode
+    assert agg["failovers"] >= 1 and agg["worker_process_restarts"] >= 1, agg
+    toks = sum(len(r.generated) for r in first)
+    log(f"10c {arch} v4, {SUP_WORKERS} process-isolated workers on one "
+        f"card, int8 KV, {LM_SLOTS} slots each (fleet up in {up:.1f} s):")
+    for line in lines:
+        log(f"  child {line}")
+    log(f"10c: fault-free wave: {N_REQUESTS} requests, {toks} tokens in "
+        f"{dt:.3f} s: {toks / dt:.1f} tokens/s, TTFT p50 "
+        f"{agg1['ttft_p50_ms']:.1f} ms p99 {agg1['ttft_p99_ms']:.1f} ms, "
+        f"inter-token p50 {agg1['intertoken_p50_ms']:.2f} ms p99 "
+        f"{agg1['intertoken_p99_ms']:.2f} ms (worst worker), 0 restarts, "
+        f"on {card}")
+    log(f"10c: worker 0 (pid {old.pid}) SIGKILLed mid-decode holding "
+        f"{owned} sequences: all {N_REQUESTS} finished with {LM_MAX_NEW} "
+        f"tokens, {agg['failovers']} failovers (each a full prompt replayed "
+        f"on a sibling), {agg['worker_process_restarts']} process restart, "
+        f"fleet healed (replacement pid {new.pid})")
+
+    # the same program in this process, the fleet gone: every stream
+    # against a static decode from a fresh state in the lane it had
+    t2 = time.perf_counter()
+    prog, ctx = lm_program_factory(**factory_kwargs)
+    engine = prog.serve(mode="lm_sync", **ctx, **engine_kwargs)
+    for name, results in (("fault-free", first), ("SIGKILL", second)):
+        by_uid = {r.uid: prompts[i] for i, r in enumerate(results)}
+        placed = [(r.uid, *r.lane) for r in results]
+        checked = serve_streams_check(engine, prog.bound_params, ctx["cfg"],
+                                      ctx["run"], by_uid, placed, results,
+                                      kv_quant="int8")
+        assert checked == N_REQUESTS, (name, checked)
+    log(f"10c: both waves' {2 * N_REQUESTS} streams equal a static decode of "
+        f"the same prompts from a fresh state in their lanes, through the "
+        f"same program built here ({time.perf_counter() - t2:.1f} s)")
+    del engine, prog
+    torch.cuda.empty_cache()
+
+
+def supervised_phases(prog, apply, in_shape, params_cpu, card):
+    """10a-10c: supervised, process-isolated serving on the card."""
+    labels = sup_inproc_phase(prog, apply, in_shape, params_cpu, card)
+    sup_process_cnn_phase(in_shape, labels, card)
+    sup_process_lm_phase(card)
 
 
 def main() -> int:
@@ -2582,6 +3054,10 @@ def main() -> int:
                     if KERNELS[k][3] == f"{RWKV_ARCH} v4 prefill"})
     mac_results, mac_launches = mac_phase(dev, card)
     results.update(mac_results)
+
+    # 10) supervised serving: in-process workers, process-isolated workers
+    # sharing the card (ResNet50 and qwen3-8b)
+    supervised_phases(prog, apply, in_shape, params_cpu, card)
 
     # 9) the kernels line, then the device line
     path_launches = {k: launches[k] for k in PER_FORWARD["resnet50 v4"]}

@@ -46,6 +46,7 @@ from typing import Callable
 import numpy as np
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.weak import WeakIdKeyDictionary
@@ -327,12 +328,67 @@ _CLASS_OF = {op: cls for cls, ops in OP_CLASSES.items() for op in ops}
 _EQNS = {"aten.clamp": 2, "aten.hardtanh": 2}
 # a matmul op that also adds its bias (the reference's dot + add)
 _BIASED = {"aten.addmm": 0, "aten.baddbmm": 0, "aten.convolution": 2}
+# layout ops that are eqns with bytes in the reference (jnp.split)
+_MOVES = ("aten.split", "aten.split_with_sizes")
 # where each matmul op takes its weight-like right operand
 _RHS = {"aten.addmm": 2, "aten.baddbmm": 2}
 
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _einsum_weight(spec: str, a: torch.Tensor, b: torch.Tensor
+                   ) -> torch.Tensor:
+    """The operand of a two-operand einsum that ``jnp.einsum``'s lowering
+    passes second to ``dot_general`` (the reference's weight): it takes the
+    second operand as lhs and emits ``dot_general(first, second)`` when the
+    batch, first-only and second-only names already spell the output,
+    else ``dot_general(second, first)``."""
+    ins, out = spec.replace(" ", "").split("->")
+    names = []
+    for t, sub in zip((a, b), ins.split(",")):
+        fill = "".join(chr(ord("A") + i)
+                       for i in range(t.ndim - len(sub.replace("...", ""))))
+        names.append(sub.replace("...", fill))
+    out = out.replace("...", fill if "..." in out else "")
+    first, second = names
+    batch = [c for c in out if c in first and c in second]
+    shared = set(first) & set(second)
+    only_first = "".join(c for c in first if c not in shared)
+    only_second = "".join(c for c in second if c not in shared)
+    if "".join(batch) + only_first + only_second == out:
+        return b
+    return a
+
+
+class _EinsumOrder(TorchFunctionMode):
+    """Tells the op counter which operand of a two-operand ``einsum`` the
+    reference counts as the weight of the product it issues."""
+
+    def __init__(self, counter: "_OpCounter"):
+        super().__init__()
+        self.counter = counter
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        ops = args[1:]
+        if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
+            ops = tuple(ops[0])
+        if func is not torch.einsum or len(ops) != 2:
+            return func(*args, **kwargs)
+        self.counter.weight_next = _nbytes(_einsum_weight(args[0], *ops))
+        try:
+            return func(*args, **kwargs)
+        finally:
+            self.counter.weight_next = None
+
+
+def _gelu_tanh_eqns(x: torch.Tensor):
+    """``jax.nn.gelu(approximate=True)``'s equations, in its order (the
+    reference's model has them inline where the port calls one op)."""
+    cdf = 0.5 * (1.0 + torch.tanh(0.7978845608 * (x + 0.044715 * x**3)))
+    return x * cdf
 
 
 def _matmul_flops(name: str, args, out: torch.Tensor) -> float:
@@ -374,9 +430,11 @@ def _wkv_eqns(r, k, v, lw, u, s0, chunk) -> None:
     o_intra = torch.einsum("btsh,bshj->bthj", a, vc)
     bonus = torch.einsum("bthi,bthi->bth", rc, u.float() * kc)
     o_diag = bonus[..., None] * vc
-    dec_end = torch.exp(cum[:, -1:] - cum)
-    torch.exp(cum[:, -1])[..., None] * s + torch.einsum(
-        "bthi,bthj->bhij", kc * dec_end, vc)
+    # the reference's cum[:, -1] is a dynamic_slice, an eqn with bytes
+    last = torch.full((1,), chunk - 1, dtype=torch.int64, device=r.device)
+    dec_end = torch.exp(torch.index_select(cum, 1, last) - cum)
+    s_decayed = torch.exp(torch.index_select(cum, 1, last)[:, 0])[..., None] * s
+    s_decayed + torch.einsum("bthi,bthj->bhij", kc * dec_end, vc)
     o_state + o_intra + o_diag
 
 
@@ -401,8 +459,10 @@ class _OpCounter(TorchDispatchMode):
         self.prof = prof
         self.pending = WeakIdKeyDictionary()  # tensor -> [_Pending]
         self.unpadded = WeakIdKeyDictionary()  # padded tensor -> its source
+        self.pad_bytes = WeakIdKeyDictionary()  # padded tensor -> pad's bytes
         self.prev_addi = False
         self.quiet = 0
+        self.weight_next: int | None = None  # set by _EinsumOrder
 
     def pool(self, op, x, run):
         """A pool site's baseline as the reference's eqns: one windowed
@@ -447,8 +507,18 @@ class _OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
         name = str(func.overloadpacket)
+        if (name == "aten.gelu" and kwargs.get("approximate") == "tanh"
+                and not self.quiet):
+            self.quiet += 1
+            try:
+                out = func(*args, **kwargs)
+            finally:
+                self.quiet -= 1
+            with self:  # re-entered: the expansion's ops are recorded
+                _gelu_tanh_eqns(args[0])
+            return out
+        out = func(*args, **kwargs)
         if name.startswith("aten.") and not self.quiet:  # not prim.device
             self._account(name, tree_leaves((args, kwargs)), tree_leaves(out),
                           args)
@@ -465,7 +535,20 @@ class _OpCounter(TorchDispatchMode):
             for rec in waiting.values():
                 self._watch(outs, rec)
             if name == "aten.constant_pad_nd":
+                # the reference's jnp.pad moves its bytes (a pad of width 0
+                # is no eqn), its conv's own padding none: a conv that
+                # consumes the pad takes them back
                 self.unpadded[out] = self.unpadded.get(args[0], args[0])
+                if out.numel() != ins[0].numel():
+                    self.pad_bytes[out] = _mult() * (_nbytes(ins[0])
+                                                     + _nbytes(out))
+                    self.prof.hbm_bytes += self.pad_bytes[out]
+            elif name in _MOVES or (name == "aten._to_copy"
+                                    and out.dtype != ins[0].dtype):
+                # the reference's split and convert_element_type eqns
+                # are not layout plumbing: they move their bytes
+                self.prof.hbm_bytes += _mult() * sum(
+                    _nbytes(t) for t in (ins[0], *outs))
             self.prev_addi = False
             return
 
@@ -480,6 +563,7 @@ class _OpCounter(TorchDispatchMode):
             elif rec.stage == "act" and cls == "act":
                 c["fusedmac"] += rec.mult
         if name == "aten.convolution":  # the unpadded input, as the reference
+            prof.hbm_bytes -= self.pad_bytes.pop(ins[0], 0.0)
             ins[0] = self.unpadded.get(ins[0], ins[0])
         in_bytes = sum(_nbytes(t) for t in ins)
         out_bytes = sum(_nbytes(t) for t in outs)
@@ -489,7 +573,11 @@ class _OpCounter(TorchDispatchMode):
             fl = _matmul_flops(name, args, out)
             prof.flops += mult * fl
             prof.matmul_flops += mult * fl
-            prof.weight_bytes += mult * _nbytes(args[_RHS.get(name, 1)])
+            w = self.weight_next
+            if w is None:
+                w = _nbytes(args[_RHS.get(name, 1)])
+            self.weight_next = None
+            prof.weight_bytes += mult * w
             c["mul(mac)"] += mult
             c["conv" if name == "aten.convolution" else "dot"] += mult
             if name == "aten.convolution":
@@ -628,7 +716,7 @@ def profile_fn(fn: Callable, *args, **kwargs) -> PatternProfile:
                 if isinstance(a, (torch.Tensor, np.ndarray)) else a
                 for a in args]
         with _recording(sink), dispatch.use_table(dispatch.EMPTY_TABLE), \
-                _OpCounter(prof) as counter:
+                _OpCounter(prof) as counter, _EinsumOrder(counter):
             _tls.counter = counter
             try:
                 fn(*fake, **kwargs)

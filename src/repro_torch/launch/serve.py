@@ -1,4 +1,4 @@
-"""Serving launcher: the CNN and LM async serving tiers on the CUDA card.
+"""Serving launcher: the CNN and LM serving tiers on the CUDA card.
 
     python -m repro_torch.launch.serve --cnn resnet50 --requests 32
     python -m repro_torch.launch.serve --arch qwen3-8b --lm --requests 32 \
@@ -13,6 +13,19 @@ request wave through :class:`~repro_torch.runtime.cnn_server.AsyncCnnEngine`
 random bf16 weights drawn on the card from seed 0; ``--smoke`` takes the
 2-layer, 128-wide variant) and prints the serving metrics.  It runs on the
 card; ``--device cpu`` runs the kernels' plain versions on the CPU instead.
+
+Supervised tiers (a fault-tolerant control plane over N workers, the
+Prometheus snapshot printed on exit)::
+
+    python -m repro_torch.launch.serve --cnn resnet50 --supervised --workers 2
+    python -m repro_torch.launch.serve --arch qwen3-8b --lm --supervised \
+        --workers 2 --kv-quant int8
+
+``--isolation process`` makes each worker its own OS process (spawned; the
+workers share the card): a ``kill -9`` costs one worker, never the fleet.
+``--arch`` without ``--lm`` runs the legacy wave loop
+(:class:`~repro_torch.runtime.server.ServeEngine`, the plain versions), as
+the reference's launcher does.
 """
 from __future__ import annotations
 
@@ -24,6 +37,12 @@ import time
 import numpy as np
 import torch
 
+# an LM worker's heartbeat waits behind its decode step in flight (a
+# full-width qwen3-8b step takes ~107 ms of wall time on the H100), so the
+# supervised LM tier floors the beats above a step and allows a longer hang;
+# the CNN tier keeps the supervisor's defaults
+LM_SUPERVISOR = dict(heartbeat_floor_ms=250.0, hang_timeout_ms=10_000.0)
+
 
 def random_images(in_shape, n: int, seed: int = 0) -> list[np.ndarray]:
     """A deterministic request wave (shared by the launcher and tests)."""
@@ -32,15 +51,53 @@ def random_images(in_shape, n: int, seed: int = 0) -> list[np.ndarray]:
             for _ in range(n)]
 
 
+def serve_cnn_supervised(args, prog, in_shape) -> dict:
+    """The fault-tolerant path: a Supervisor routing over ``--workers``
+    workers; prints the Prometheus snapshot and returns the metrics."""
+    from repro_torch.runtime.supervisor import Supervisor
+
+    async def main() -> dict:
+        sup = Supervisor()
+        reg_kwargs = dict(workers=args.workers, warmup=in_shape,
+                          max_batch=args.max_batch,
+                          max_delay_ms=args.max_delay_ms)
+        if args.isolation == "process":
+            # no parent-side program: each actor compiles its own copy
+            from repro_torch.runtime.actor import cnn_program_factory
+
+            reg_kwargs.update(isolation="process",
+                              program_factory=cnn_program_factory,
+                              factory_kwargs=dict(model=args.cnn,
+                                                  device=args.device))
+        sup.register(args.cnn, prog, **reg_kwargs)
+        async with sup:
+            t0 = time.perf_counter()
+            results = await sup.submit_wave(
+                random_images(in_shape, args.requests))
+            dt = time.perf_counter() - t0
+            m = sup.metrics()
+            print(f"served {len(results)} requests across "
+                  f"{m['aggregate']['healthy_workers']} supervised "
+                  f"{args.isolation} worker(s) in {dt * 1e3:.1f} ms "
+                  f"({dt / args.requests * 1e6:.0f} us/request)")
+            print(sup.prometheus(), end="")
+            return m
+
+    return asyncio.run(main())
+
+
 def serve_cnn(args) -> dict:
     from repro_torch import marvel
     from repro_torch.models.cnn import get_cnn
+    from repro_torch.runtime.actor import cnn_program_factory
 
-    init, apply, in_shape = get_cnn(args.cnn)
+    _, _, in_shape = get_cnn(args.cnn)
+    if args.supervised and args.isolation == "process":
+        return serve_cnn_supervised(args, None, in_shape)
     dev = marvel.resolve_device(args.device)
-    params = init(torch.Generator().manual_seed(0), device=dev)
-    x = np.zeros((1, *in_shape), np.float32)
-    prog = marvel.compile(apply, x, params=params, level="v4", device=dev)
+    prog = cnn_program_factory(model=args.cnn, device=dev)
+    if args.supervised:
+        return serve_cnn_supervised(args, prog, in_shape)
     engine = prog.serve(mode="async", max_batch=args.max_batch,
                         max_delay_ms=args.max_delay_ms)
 
@@ -67,31 +124,66 @@ def lm_prompts(vocab: int, n: int) -> list[list[int]]:
             for uid in range(n)]
 
 
-def build_lm(arch: str, *, smoke: bool, device, slots: int):
-    """(program, cfg, run) of ``arch`` at v4 with random weights from seed
-    0, drawn on ``device``."""
-    from repro_torch import marvel
-    from repro_torch.configs import RunConfig, get_arch, smoke_variant
-    from repro_torch.models import transformer as T
+def serve_lm_supervised(args, engine_kwargs) -> dict:
+    """The supervised LM tier: ``--workers`` continuous-batching workers,
+    in-process or (``--isolation process``) each its own OS process that
+    builds its program from ``lm_program_factory``; prints the Prometheus
+    snapshot and returns the metrics."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.runtime.actor import lm_program_factory
+    from repro_torch.runtime.supervisor import Supervisor
 
-    cfg = get_arch(arch)
-    if smoke:
+    cfg = get_arch(args.arch)
+    if args.smoke:
         cfg = smoke_variant(cfg)
-    dev = marvel.resolve_device(device)
-    run = RunConfig(seq_len=32, global_batch=slots, mode="decode",
-                    attn_chunk=16)
-    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    tokens = np.ones((1, 8), np.int32)
-    prog = marvel.compile(lambda p, t: T.forward_lm(p, t, cfg, run)[0],
-                          tokens, params=params, level="v4", device=dev)
-    return prog, cfg, run
+    prompts = lm_prompts(cfg.vocab, args.requests)
+    factory_kwargs = dict(arch=args.arch, smoke=args.smoke,
+                          global_batch=args.slots, device=args.device)
+
+    async def main() -> dict:
+        sup = Supervisor(**LM_SUPERVISOR)
+        if args.isolation == "process":
+            # each actor rebuilds cfg/run child-side via the factory; only
+            # the engine knobs cross the pipe
+            sup.register(args.arch, None, workers=args.workers, mode="lm",
+                         warmup=(), isolation="process",
+                         program_factory=lm_program_factory,
+                         factory_kwargs=factory_kwargs, **engine_kwargs)
+        else:
+            prog, ctx_kwargs = lm_program_factory(**factory_kwargs)
+            sup.register(args.arch, prog, workers=args.workers, mode="lm",
+                         warmup=(), **ctx_kwargs, **engine_kwargs)
+        async with sup:
+            t0 = time.perf_counter()
+            results = await sup.submit_wave(prompts,
+                                            max_new_tokens=args.max_new)
+            dt = time.perf_counter() - t0
+            toks = sum(len(r.generated) for r in results)
+            m = sup.metrics()
+            print(f"served {len(results)} sequences ({toks} tokens) across "
+                  f"{m['aggregate']['healthy_workers']} supervised "
+                  f"{args.isolation} LM worker(s) in {dt:.2f} s: "
+                  f"{toks / dt:.1f} tok/s")
+            print(sup.prometheus(), end="")
+            return m
+
+    return asyncio.run(main())
 
 
 def serve_lm(args) -> dict:
-    prog, cfg, run = build_lm(args.arch, smoke=args.smoke,
-                              device=args.device, slots=args.slots)
-    engine = prog.serve(mode="lm", cfg=cfg, run=run, slots=args.slots,
-                        max_len=args.max_len, kv_quant=args.kv_quant)
+    """The continuous-batching LM tier (``--lm``), supervised with
+    ``--supervised``."""
+    from repro_torch.runtime.actor import lm_program_factory
+
+    engine_kwargs = dict(slots=args.slots, max_len=args.max_len,
+                         kv_quant=args.kv_quant)
+    if args.supervised:
+        return serve_lm_supervised(args, engine_kwargs)
+    prog, ctx = lm_program_factory(args.arch, smoke=args.smoke,
+                                   global_batch=args.slots,
+                                   device=args.device)
+    cfg = ctx["cfg"]
+    engine = prog.serve(mode="lm", **ctx, **engine_kwargs)
     prompts = lm_prompts(cfg.vocab, args.requests)
 
     async def main() -> dict:
@@ -117,6 +209,37 @@ def serve_lm(args) -> dict:
     return metrics
 
 
+def serve_wave_loop(args) -> dict:
+    """The legacy wave loop: a caller-driven
+    :class:`~repro_torch.runtime.server.ServeEngine` over the plain versions,
+    random weights from seed 0 on the device."""
+    from repro_torch import marvel
+    from repro_torch.configs import RunConfig, get_arch, smoke_variant
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.server import Request, ServeEngine
+
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    dev = marvel.resolve_device(args.device)
+    run = RunConfig(seq_len=128, global_batch=args.slots, mode="decode",
+                    attn_chunk=32, ssm_chunk=32, wkv_chunk=16)
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    engine = ServeEngine(params, cfg, run, batch_slots=args.slots,
+                         max_len=128)
+    t0 = time.time()
+    for uid, prompt in enumerate(lm_prompts(cfg.vocab, args.requests)):
+        engine.submit(Request(uid=uid, prompt=prompt,
+                              max_new_tokens=args.max_new))
+    engine.run_until_drained()
+    dt = time.time() - t0
+    print(f"served {args.requests} requests ({args.max_new} tokens each) "
+          f"in {dt:.1f}s with {args.slots} slots on {dev}")
+    metrics = engine.metrics()
+    print(json.dumps(metrics, indent=1))
+    return metrics
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     what = ap.add_mutually_exclusive_group(required=True)
@@ -124,8 +247,9 @@ def main(argv=None):
                       help="CNN to serve (lenet5, mobilenetv1, vgg16, "
                            "resnet50, mobilenetv2, densenet121)")
     what.add_argument("--arch",
-                      help="LM to serve with --lm (qwen3-8b, granite-3-2b, "
-                           "starcoder2-3b, rwkv6-1.6b)")
+                      help="LM to serve (qwen3-8b, granite-3-2b, "
+                           "starcoder2-3b, rwkv6-1.6b): the legacy wave "
+                           "loop, or the continuous-batching tier with --lm")
     ap.add_argument("--lm", action="store_true",
                     help="serve --arch through the continuous-batching tier")
     ap.add_argument("--smoke", action="store_true",
@@ -139,14 +263,28 @@ def main(argv=None):
     ap.add_argument("--kv-quant", choices=("int8",), default=None,
                     help="int8 KV cache (attention families; rwkv's "
                          "recurrent state refuses it)")
+    ap.add_argument("--supervised", action="store_true",
+                    help="run the tier under the fault-tolerant supervisor "
+                         "(prints Prometheus metrics on exit)")
+    ap.add_argument("--workers", type=int, default=2,
+                    help="supervised engine workers (with --supervised)")
+    ap.add_argument("--isolation", choices=("inproc", "process"),
+                    default="inproc",
+                    help="supervised worker isolation: in-process engines "
+                         "(default) or one spawned OS process per worker, "
+                         "sharing the card (crash-only recovery)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain versions)")
     args = ap.parse_args(argv)
-    if args.arch is not None:
-        if not args.lm:
-            ap.error("--arch serves through the LM tier: add --lm")
+    if args.supervised and not (args.cnn or args.lm):
+        ap.error("--supervised requires --cnn or --lm")
+    if args.isolation == "process" and not args.supervised:
+        ap.error("--isolation process requires --supervised")
+    if args.cnn is not None:
+        return serve_cnn(args)
+    if args.lm:
         return serve_lm(args)
-    return serve_cnn(args)
+    return serve_wave_loop(args)
 
 
 if __name__ == "__main__":

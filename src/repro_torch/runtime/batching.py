@@ -173,6 +173,19 @@ class BoundedQueue:
         return bool(self._q)
 
 
+def refill_slots(slots: list, queue, on_fill) -> list[int]:
+    """Fill empty (None) lanes from the queue; ``on_fill(lane, req)`` does the
+    engine-specific lane reset.  Returns the lanes filled."""
+    filled = []
+    for i, slot in enumerate(slots):
+        if slot is None and queue:
+            req = queue.popleft()
+            slots[i] = req
+            on_fill(i, req)
+            filled.append(i)
+    return filled
+
+
 # ---------------------------------------------------------------------------
 # metrics
 # ---------------------------------------------------------------------------

@@ -116,6 +116,7 @@ class LmRequest:
     latency_ms: float = 0.0
     ttft_ms: float = 0.0  # time to first generated token
     replays: int = 0  # eviction-bisection requeues (full prompt replayed)
+    lane: tuple[int, int] | None = None  # (bucket_len, slot) last admitted to
     _t0: float = 0.0
     _deadline: float | None = None  # absolute perf_counter seconds
 
@@ -289,6 +290,7 @@ class ContinuousBatchEngine:
                 break  # every eligible slot is occupied; stay queued
             self.queue.popleft()
             bucket_len, slot = alloc
+            req.lane = alloc
             seq = _Seq(req=req, last_t=now)
             self._active.setdefault(bucket_len, {})[slot] = seq
             tokens = self._tokens.get(bucket_len)

@@ -120,12 +120,24 @@ SITE_INPUTS = ("matmul_flops", "loop_iters", "residual_norm_bytes",
                "wkv_flops", "rmsnorm_epilogue_bytes")
 
 
+# the profile's byte totals against the reference's (the CNN test's limit)
+HBM_REL = 2e-2
+
+
+def assert_bytes_match(got, want):
+    """hbm_bytes and weight_bytes of two profiles within ``HBM_REL``."""
+    for key in ("hbm_bytes", "weight_bytes"):
+        assert getattr(got, key) == pytest.approx(getattr(want, key),
+                                                  rel=HBM_REL), key
+
+
 def assert_report_matches(tp, jp, tokens):
     got, want = tp.report, jp.report
     gi = got.profile.as_costmodel_inputs()
     wi = want.profile.as_costmodel_inputs()
     for key in SITE_INPUTS:
         assert gi[key] == wi[key], key
+    assert_bytes_match(got.profile, want.profile)
     assert gi["loop_iters"] > 0
     for level in ("v0", "v1", "v2", "v3", "v4"):
         assert got.rv32_cycles[level] == pytest.approx(
@@ -398,6 +410,31 @@ def test_qwen3_classifies_and_resolves_as_the_reference(qwen):
                               "mac_matmul_int8": "cuda"}
     # the reports: the scan's trip count multiplies what its body records
     assert_report_matches(tp, jp, qwen.tokens)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-2b", "starcoder2-3b",
+                                  "rwkv6-1.6b"])
+def test_lm_profile_byte_totals_match_reference(arch):
+    """The four LMs' smoke variants at batch 1 (bf16, the reference's own
+    weights): the profile's ``hbm_bytes`` and ``weight_bytes`` within
+    ``HBM_REL`` of the reference's, so the modelled GPU rows of the report
+    are the reference's.  The reference counts a dtype conversion's bytes
+    and a contraction's second operand as its weight."""
+    from repro.core import profiler as jprof
+    from repro_torch.core import profiler as tprof
+
+    jcfg, cfg = jsmoke(jget_arch(arch)), smoke_variant(get_arch(arch))
+    jrun, run = JRun(**RUN), RunConfig(**RUN)
+    jparams = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    params = T.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams),
+                               cfg)
+    tokens = np.ones((1, 8), np.int32)
+    want = jprof.profile_fn(
+        lambda p, x: JT.forward_lm(p, x, jcfg, jrun)[0], jparams, tokens)
+    got = tprof.profile_fn(lambda p, x: T.forward_lm(p, x, cfg, run)[0],
+                           params, torch.from_numpy(tokens))
+    assert_bytes_match(got, want)
+    assert got.matmul_flops == want.matmul_flops
 
 
 def test_starcoder2_smoke_forward_matches_reference_at_v4():

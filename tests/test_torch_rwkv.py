@@ -76,6 +76,8 @@ def assert_report_matches(tp, jp, tokens):
     wi = want.profile.as_costmodel_inputs()
     for key in SITE_INPUTS:
         assert gi[key] == wi[key], key
+    for key in ("hbm_bytes", "weight_bytes"):  # the CNN test's HBM_REL
+        assert gi[key] == pytest.approx(wi[key], rel=2e-2), key
     assert gi["loop_iters"] > 0
     for level in ("v0", "v1", "v2", "v3", "v4"):
         assert got.rv32_cycles[level] == pytest.approx(

@@ -106,8 +106,13 @@ def test_lm_launcher_serves_the_smoke_variant_on_cpu(capsys, monkeypatch):
     assert m["completed"] == 5 and m["tokens_total"] == 15
     assert m["kv_quant"] == "int8" and m["errors"] == 0
     assert "0 new buckets after warmup" in capsys.readouterr().out
-    with pytest.raises(SystemExit):  # --arch serves through the LM tier
-        tserve.main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu"])
+    # --arch without --lm: the legacy wave loop, as the reference's launcher
+    m = tserve.main(["--arch", "qwen3-8b", "--smoke", "--requests", "3",
+                     "--max-new", "2", "--slots", "2", "--device", "cpu"])
+    assert m["completed"] == 3 and m["submitted"] == 3
+    with pytest.raises(SystemExit):  # --isolation process needs supervision
+        tserve.main(["--cnn", "lenet5", "--isolation", "process",
+                     "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.main(["--arch", "qwen3-8b", "--smoke", "--lm"])

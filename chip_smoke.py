@@ -164,6 +164,34 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    under the v4 rnn_lm table, each equal to the plain int32 sum; each case
    timed beside ``torch._int_mm`` and the scale (its operands zero-padded
    to what ``_int_mm`` takes) and its bound;
+11a. hymba-1.5b at full width and depth in bf16 (32 layers, d_model
+   1600, 25 heads of 64 over 5 KV heads, a 1024-token window, SSM d_inner
+   3200 x 16 states, d_ff 5504; ~1.6 B parameters drawn on the card, seed
+   0), compiled at v4: class ``hybrid_lm``, flash_attention,
+   residual_rmsnorm and matmul_epilogue bound to ``cuda``, ``ssm_chunk``
+   on its plain version (no kernel in either package);
+11b. one recorded prefill at B = 1, S = 2048 (two SWA blocks, sixteen SSM
+   chunks a layer): exactly 224 matmul_epilogue (wgmma form, N = 1600 and
+   320 ending in half a column tile) and 32 residual_rmsnorm launches, the
+   report's site counts times the layers, every one held (``gemm_tol``,
+   the norm's bound), each shape timed beside its bound, cuBLAS and the fma
+   form; flash attention 0 launches (the window takes the plain path, as
+   in the reference); the forward's wall against its kernels' time;
+11c. its v4 logits against the same model at v0 on the card within
+   ``HYMBA_V0_TIMES_NOISE`` times the v4 program's response to one-ulp
+   noise on every site's input; a GEMM kernel that drops its residual
+   (planted) must exceed that limit;
+11d. 8 requests (prompts of 8-24 tokens, 16 new tokens) through
+   ``prog.serve(mode="lm", kv_quant="int8", slots=8, max_len=64)``: 224
+   GEMM (decode form) and 32 norm launches a step, 0 compile misses after
+   warmup, every admitted slot's h/conv rows zero, all streams equal to a
+   static decode in their lanes; tokens/s, TTFT; a recorded decode step
+   at 8 slots held and timed, its wall against its kernels' time;
+11e. the f32 smoke variant on the card: 64 decode steps (two 32-token
+   windows, four SSM chunks of 16) against the v4 forward within the
+   reference's atol 2e-3 / rtol 1e-3;
+11f. the pure-SSM stack (``models/ssm.py::ssm_stack_forward``) compiled on
+   the card: class ``ssm_lm``, 3 GEMM and 1 norm launches a layer;
 10a. supervised serving, in process: a ``Supervisor`` over 2 workers of the
    ResNet50 v4 program (``max_batch=8``).  A recorded 32-request wave
    (``BatchRecorder`` at the program boundary: each batch's counts from 0,
@@ -999,6 +1027,12 @@ PER_FORWARD = {
     # (no kernel in either package) and plain ops, as in the reference
     "rwkv6-1.6b v4 prefill": {"wkv_chunk": 24, "matmul_epilogue": 48},
     "rwkv6-1.6b v4 decode": {},
+    # hymba-1.5b, 32 layers: 7 GEMMs (q, k, v, o, the SSM's out_proj, the
+    # MLP's gate and down projections) and 1 fused residual-add + norm per
+    # layer; its sliding-window attention takes the plain path and the SSM
+    # scan has no kernel, in both packages
+    "hymba-1.5b v4 prefill": {"residual_rmsnorm": 32, "matmul_epilogue": 224},
+    "hymba-1.5b v4 decode": {"residual_rmsnorm": 32, "matmul_epilogue": 224},
 }
 
 # the form each launch of a kernel with forms takes, per forward: the LMs'
@@ -1013,6 +1047,8 @@ FORWARD_FORMS = {
                             "flash_attention": "wgmma"},
     "qwen3-8b v4 decode": {"matmul_epilogue": "decode"},
     "rwkv6-1.6b v4 prefill": {"matmul_epilogue": "wgmma"},
+    "hymba-1.5b v4 prefill": {"matmul_epilogue": "wgmma"},
+    "hymba-1.5b v4 decode": {"matmul_epilogue": "decode"},
 }
 
 
@@ -1279,14 +1315,18 @@ def site_noise_response(prog, batch, got, seeds: int = 3) -> float:
     g = torch.Generator(device="cpu").manual_seed(3)
     orig = dispatch.call
 
-    def noisy(pattern, baseline, x, *args, **kwargs):
+    def noisy(pattern, baseline, *args, **kwargs):
+        # the site's first tensor argument (ssm_chunk takes its params first)
+        i = next(j for j, a in enumerate(args)
+                 if isinstance(a, torch.Tensor))
+        x = args[i]
         n = torch.randn(x.shape, generator=g).to(x.device)
         if x.dtype == torch.bfloat16:
             eps = torch.finfo(x.dtype).eps
             x = (x.float() * (1 + eps * n)).to(x.dtype)
         else:
             x = x * (1 + 1e-7 * n)
-        return orig(pattern, baseline, x, *args, **kwargs)
+        return orig(pattern, baseline, *args[:i], x, *args[i + 1:], **kwargs)
 
     worst = 0.0
     dispatch.call = noisy
@@ -2463,6 +2503,281 @@ def mac_phase(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# the hybrid_lm path: hymba-1.5b at full width, and the ssm_lm stack
+# ---------------------------------------------------------------------------
+
+HYMBA_ARCH = "hymba-1.5b"
+# (B, S) of the recorded prefill: two SWA blocks of 1024 and sixteen SSM
+# chunks of 128 a layer
+HYMBA_PREFILL = (1, 2048)
+HYMBA_REQUESTS, HYMBA_PROMPT_LENS = 8, (8, 24)
+# the v4 logits against the same model at v0 on the card: at most this many
+# times the v4 program's response to one-ulp noise on every site's input
+HYMBA_V0_TIMES_NOISE = 3.0
+# (B, S) of the f32 smoke decode against the forward: two 32-token windows,
+# four SSM chunks of 16; the reference's own atol and rtol
+HYMBA_DECODE = (2, 64)
+HYMBA_DECODE_TOL = dict(atol=2e-3, rtol=1e-3)
+
+
+def hymba_phases(dev, card):
+    """11a-11f: hymba-1.5b at full width and depth in bf16 on the card, its
+    f32 smoke variant's decode against its forward, and the ssm_lm
+    stack."""
+    import numpy as np
+    import torch
+    from repro_torch import marvel
+    from repro_torch.configs import RunConfig, get_arch, smoke_variant
+    from repro_torch.kernels import matmul_epilogue as me
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.kvcache import POSITION_LEAVES
+
+    t_phase = time.perf_counter()
+    # 11a) build on the card and compile at v4
+    cfg = get_arch(HYMBA_ARCH)
+    run = RunConfig(seq_len=HYMBA_PREFILL[1], global_batch=HYMBA_PREFILL[0],
+                    mode="prefill")
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    log(f"{HYMBA_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.d_head} over {cfg.n_kv_heads} KV heads, "
+        f"a {cfg.sliding_window}-token window, SSM d_inner "
+        f"{cfg.ssm_d_inner} x {cfg.ssm_state} states, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}: {tree_numel(params) / 1e9:.3f} B parameters in "
+        f"{cfg.param_dtype} (A_log, D in f32) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    t0 = time.perf_counter()
+    prog = lm_program(params, cfg, run, np.ones((1, 8), np.int32), dev)
+    assert prog.model_class == "hybrid_lm", prog.model_class
+    for pat in ("flash_attention", "residual_rmsnorm", "matmul_epilogue"):
+        assert prog.resolved_extensions.get(pat) == "cuda", prog.table
+    assert "ssm_chunk" not in prog.table, prog.table
+    sites = prog.profile.site_counts
+    log(f"compiled {HYMBA_ARCH} v4 in {time.perf_counter() - t0:.1f} s: "
+        f"{prog.summary()}")
+    rng = np.random.default_rng(11)
+
+    # 11b) one recorded prefill forward, every launch held
+    b, s = HYMBA_PREFILL
+    label = f"{HYMBA_ARCH} v4 prefill"
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (b, s)).astype(
+        np.int32)).to(dev)
+    rec, counts, logits = record_launches(prog, tokens)
+    check_counts(label, counts)
+    for k in ("matmul_epilogue", "residual_rmsnorm"):
+        assert counts[k] == sites[k] * cfg.n_layers, (k, counts[k], sites)
+    assert sites["flash_attention"] == 1 and counts["flash_attention"] == 0
+    assert logits.shape == (b, s, cfg.vocab_padded), logits.shape
+    assert torch.isfinite(logits).all(), "non-finite prefill logits"
+    got4 = logits.float().cpu()
+    del logits
+    log(f"{label} B={b} S={s}: launches {counts}; the report's sites a "
+        f"layer x {cfg.n_layers} layers: matmul_epilogue "
+        f"{sites['matmul_epilogue']}, residual_rmsnorm "
+        f"{sites['residual_rmsnorm']}; flash_attention: "
+        f"{sites['flash_attention']} site a layer and 0 launches, as in the "
+        f"reference (its {cfg.sliding_window}-token window takes the plain "
+        f"blocked path); ssm_chunk {sites['ssm_chunk']} site a layer, no "
+        f"kernel in either package")
+    prefill = hold(rec, ("residual_rmsnorm", "matmul_epilogue"), timed=True)
+    del rec
+    torch.cuda.empty_cache()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog(tokens)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"{label} B={b} S={s}: forward {statistics.median(walls):.2f} ms "
+        f"wall (median of 3), of which its kernels' device time " + ", ".join(
+            f"{k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
+            f"{r['bound_ms']:.3f}"
+            + ("" if r["library_ms"] is None
+               else f", cuBLAS {r['library_ms']:.3f}")
+            + (f", fma form {r['fma_ms']:.3f}" if "fma_ms" in r else "")
+            + ")" for k, r in prefill.items()) + f" on {card}")
+
+    # 11c) the v4 logits against the same model at v0 on the card
+    prog0 = marvel.compile(
+        lambda p, t: T.forward_lm(p, t, cfg, run)[0],
+        np.ones((1, 8), np.int32), params=params, level="v0", device=dev)
+    with counted() as v0_launches:
+        want0 = prog0(tokens).float().cpu()
+    assert all(v0_launches[k] == 0 for k in KERNELS), v0_launches
+    rel = rel_l2(got4, want0)
+    noise = site_noise_response(prog, tokens, got4, seeds=2)
+    limit = HYMBA_V0_TIMES_NOISE * noise
+    real = me._launch
+    me._launch = lambda x2, w, es, eb, r2, act, form=None: real(
+        x2, w, es, eb, None, act, form)
+    try:
+        bad = rel_l2(prog(tokens).float().cpu(), want0)
+    finally:
+        me._launch = real
+    log(f"{label}: logits vs the same model at v0 on the card (plain "
+        f"versions, no launch) relative L2 {rel:.3e}; response to one-ulp "
+        f"noise on every site's input (max of 2) {noise:.3e}, limit "
+        f"{HYMBA_V0_TIMES_NOISE:g} times that, {limit:.3e}; planted fault "
+        f"'GEMM kernel without its residual' {bad:.3e}")
+    assert rel <= limit, (rel, limit)
+    assert bad > limit, ("planted no-residual fault passed", bad, limit)
+    del prog0, want0, got4
+    torch.cuda.empty_cache()
+
+    # 11d) serve through the continuous-batching tier, int8 KV; then one
+    # recorded decode step at LM_SLOTS slots
+    engine = prog.serve(mode="lm", cfg=cfg, run=run, kv_quant="int8",
+                        slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    lo, hi = HYMBA_PROMPT_LENS
+    prompts = [rng.integers(1, cfg.vocab, int(rng.integers(lo, hi + 1))
+                            ).tolist() for _ in range(HYMBA_REQUESTS)]
+    mgr = engine.engine.manager
+    placed: list[tuple[int, int, int]] = []  # (uid, bucket, slot)
+    stale: list[tuple[int, str]] = []  # SSM rows not zero at admission
+    alloc = mgr.alloc
+
+    def placing(uid, total_len):
+        got = alloc(uid, total_len)
+        if got is not None:
+            bucket, slot = got
+            for name, t in mgr.pools[bucket].state["cache"].items():
+                if name not in POSITION_LEAVES and bool(t[:, slot].any()):
+                    stale.append((uid, name))
+            placed.append((uid, bucket, slot))
+        return got
+
+    mgr.alloc = placing
+
+    async def serve():
+        async with engine:
+            engine.warmup()
+            misses = engine.engine.compile_misses
+            steps = engine.engine.decode_steps
+            with counted() as launches:
+                t0 = time.perf_counter()
+                done = await engine.submit_wave(prompts,
+                                                max_new_tokens=LM_MAX_NEW)
+                dt = time.perf_counter() - t0
+            return (done, dt, launches, engine.engine.decode_steps - steps,
+                    engine.engine.compile_misses - misses, engine.metrics())
+
+    done, dt, launches, steps, new_misses, m = asyncio.run(serve())
+    assert len(done) == HYMBA_REQUESTS and all(
+        r.done and r.error is None and len(r.generated) == LM_MAX_NEW
+        for r in done), "hymba requests failed"
+    assert m["errors"] == 0 and new_misses == 0, (m, new_misses)
+    check_counts(f"{HYMBA_ARCH} v4 decode", launches, steps)
+    assert not stale, f"SSM rows not zeroed at admission: {stale}"
+    toks_out = sum(len(r.generated) for r in done)
+    log(f"{HYMBA_ARCH} v4 serve, int8 KV (SSM state f32), {LM_SLOTS} slots, "
+        f"buckets {mgr.bucket_lens}: {HYMBA_REQUESTS} requests (prompts of "
+        f"{lo}-{hi} tokens), {toks_out} tokens in {dt:.3f} s: "
+        f"{toks_out / dt:.1f} tokens/s, TTFT p50 {m['ttft_p50_ms']:.1f} ms "
+        f"p99 {m['ttft_p99_ms']:.1f} ms, inter-token p50 "
+        f"{m['intertoken_p50_ms']:.2f} ms p99 {m['intertoken_p99_ms']:.2f} "
+        f"ms, {steps} decode steps, 0 compile misses after warmup, on {card}")
+    checked = serve_streams_check(engine.engine, params, cfg, run, prompts,
+                                  placed, done, kv_quant="int8")
+    assert checked == HYMBA_REQUESTS, checked
+    log(f"{HYMBA_ARCH} v4 serve: all {checked} request streams equal a "
+        f"static decode of the same prompts from a fresh state in the same "
+        f"lanes; every admitted slot's h/conv rows were zero")
+    decode = prog.table.bind(
+        lambda st, tk: T.decode_step(params, st, tk, cfg, run))
+    state = T.init_decode_state(params, cfg, run, batch=LM_SLOTS,
+                                max_len=LM_MAX_LEN, kv_quant="int8")
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (LM_SLOTS, 1)).astype(
+        np.int32)).to(dev)
+    with torch.inference_mode():
+        for _ in range(8):
+            _, state = decode(state, toks)
+        rec, counts, (step_logits, _) = record_launches(decode, state, toks)
+        check_counts(f"{HYMBA_ARCH} v4 decode", counts)
+        assert torch.isfinite(step_logits).all()
+        dec = hold(rec, ("residual_rmsnorm", "matmul_epilogue"), timed=True)
+        del rec
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode(state, toks)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    dec_ms = sum(r["ms"] for r in dec.values())
+    log(f"{HYMBA_ARCH} v4 decode step, {LM_SLOTS} slots, int8 KV: launches "
+        f"{counts}; {statistics.median(walls):.2f} ms wall (median of 5), of "
+        f"which its kernels' device time {dec_ms:.3f} ms (" + ", ".join(
+            f"{k} {r['ms']:.3f}, bound {r['bound_ms']:.3f}"
+            for k, r in dec.items()) + f") on {card}")
+    del engine, state
+    torch.cuda.empty_cache()
+
+    # 11e) the f32 smoke variant on the card: token-by-token decode against
+    # the full forward, across the rolling window and several SSM chunks
+    scfg = smoke_variant(cfg).replace(param_dtype="float32")
+    b2, s2 = HYMBA_DECODE
+    srun = RunConfig(seq_len=s2, global_batch=b2, attn_chunk=32, ssm_chunk=16)
+    sparams = T.init_params(torch.Generator(device=dev).manual_seed(1), scfg)
+    stoks = torch.from_numpy(rng.integers(1, scfg.vocab, (b2, s2)).astype(
+        np.int32)).to(dev)
+    sprog = marvel.compile(lambda p, t: T.forward_lm(p, t, scfg, srun)[0],
+                           stoks, params=sparams, level="v4", device=dev)
+    with counted() as fwd_launches:
+        fwd = sprog(stoks)
+    step = sprog.table.bind(
+        lambda st, tk: T.decode_step(sparams, st, tk, scfg, srun))
+    state = T.init_decode_state(sparams, scfg, srun, batch=b2, max_len=s2)
+    outs = []
+    with torch.inference_mode(), counted() as dec_launches:
+        for i in range(s2):
+            lg, state = step(state, stoks[:, i:i + 1])
+            outs.append(lg)
+    got = torch.cat(outs, dim=1)
+    err = (got - fwd).abs()
+    ratio = (err / (HYMBA_DECODE_TOL["atol"] + HYMBA_DECODE_TOL["rtol"]
+                    * fwd.abs())).max().item()
+    fwd_n = {k: fwd_launches[k] for k in KERNELS if fwd_launches[k]}
+    dec_n = {k: dec_launches[k] for k in KERNELS if dec_launches[k]}
+    log(f"{HYMBA_ARCH} smoke variant in f32 (window {scfg.sliding_window}, "
+        f"SSM chunks of {srun.ssm_chunk}), B={b2} S={s2}: {s2} decode steps "
+        f"against the v4 forward: max |diff| {err.max().item():.3e}, worst "
+        f"{ratio:.3f} of atol {HYMBA_DECODE_TOL['atol']:g} + rtol "
+        f"{HYMBA_DECODE_TOL['rtol']:g} |forward|; launches: forward "
+        f"{fwd_n}, decode {dec_n}")
+    assert ratio <= 1.0, ratio
+    assert fwd_launches["matmul_epilogue"] > 0 < dec_launches[
+        "matmul_epilogue"]
+
+    # 11f) the pure-SSM stack, the ssm_lm exemplar, compiled on the card
+    kcfg = smoke_variant(cfg)
+    kparams = SSM.ssm_stack_init(torch.Generator(device=dev).manual_seed(2),
+                                 kcfg)
+    ktoks = torch.from_numpy(rng.integers(1, kcfg.vocab, (1, 64)).astype(
+        np.int32)).to(dev)
+    kprog = marvel.compile(
+        lambda p, t: SSM.ssm_stack_forward(p, t, kcfg, srun)[0], ktoks,
+        params=kparams, level="v4", device=dev)
+    assert kprog.model_class == "ssm_lm", kprog.model_class
+    with counted() as k_launches:
+        klog = kprog(ktoks)
+    k_n = {k: k_launches[k] for k in KERNELS if k_launches[k]}
+    assert torch.isfinite(klog).all()
+    assert k_launches["matmul_epilogue"] == 3 * kcfg.n_layers, k_launches
+    assert k_launches["residual_rmsnorm"] == kcfg.n_layers, k_launches
+    log(f"ssm_stack ({kcfg.n_layers} layers of the {HYMBA_ARCH} smoke "
+        f"widths, bf16) compiled on the card: {kprog.summary()}; one forward "
+        f"B=1 S=64: launches {k_n}")
+    log(f"{HYMBA_ARCH} phases: {time.perf_counter() - t_phase:.1f} s")
+    del params, prog
+    torch.cuda.empty_cache()
+    return prefill, dec
+
+
+# ---------------------------------------------------------------------------
 # supervised serving: in-process and process-isolated workers
 # ---------------------------------------------------------------------------
 
@@ -3055,6 +3370,9 @@ def main() -> int:
     mac_results, mac_launches = mac_phase(dev, card)
     results.update(mac_results)
 
+    # 11) the hybrid_lm path: hymba-1.5b at full width; the ssm_lm stack
+    hy_prefill, hy_dec = hymba_phases(dev, card)
+
     # 10) supervised serving: in-process workers, process-isolated workers
     # sharing the card (ResNet50 and qwen3-8b)
     supervised_phases(prog, apply, in_shape, params_cpu, card)
@@ -3095,11 +3413,21 @@ def main() -> int:
             form_entry(f"{LM_ARCH} v4 decode step, {LM_SLOTS} slots",
                        dec["matmul_epilogue"], "decode"),
             form_entry(f"{RWKV_ARCH} v4 prefill",
-                       rwkv_prefill["matmul_epilogue"], "wgmma")],
+                       rwkv_prefill["matmul_epilogue"], "wgmma"),
+            form_entry(f"{HYMBA_ARCH} v4 prefill",
+                       hy_prefill["matmul_epilogue"], "wgmma"),
+            form_entry(f"{HYMBA_ARCH} v4 decode step, {LM_SLOTS} slots",
+                       hy_dec["matmul_epilogue"], "decode")],
         "flash_attention": [
             form_entry(f"{LM_ARCH} v4 prefill", prefill["flash_attention"],
                        "wgmma")],
     }
+    # the norm on hymba-1.5b's forwards (its GEMMs are under tensor_core)
+    hybrid = {"residual_rmsnorm": [
+        form_entry(f"{HYMBA_ARCH} v4 prefill", hy_prefill["residual_rmsnorm"],
+                   None),
+        form_entry(f"{HYMBA_ARCH} v4 decode step, {LM_SLOTS} slots",
+                   hy_dec["residual_rmsnorm"], None)]}
     # the f32 GEMM (fma form), the int8 conv (on int8 tensor cores) and the
     # pools (vector form) on each CNN forward that times them
     cnn_forwards = {
@@ -3137,6 +3465,7 @@ def main() -> int:
             "forward": f"{forward} {batches.get(forward, f'batch {BATCH}')}",
             "path": paths.get(name, "resnet50 v4 serve"),
             "tensor_core_forms": tensor_core.get(name, []),
+            "hybrid_forwards": hybrid.get(name, []),
             "cnn_forwards": cnn_forwards.get(name, []),
         })
     fell_back = [p.summary() for p in PROGRAMS if p.rewrite_fallbacks]

@@ -30,7 +30,10 @@ multiplied by it, as the reference's walk multiplies a scan body's.  The
 two sites whose baselines are Python loops where the reference scans are
 credited from their shapes: an attention site adds its chunk trips, and a
 wkv site is counted as the reference's scan body (:func:`_wkv_eqns`) times
-its chunks, its own baseline unrecorded.
+its chunks, its own baseline unrecorded.  The SSM's chunk loop runs through
+:func:`scan_chunks`, which counts its first trip times the trips; the
+functions the reference calls jitted count as one equation
+(:func:`jitted`).
 
 The model runs on fake tensors (meta-backed: shapes and dtypes, no data),
 so nothing is computed and no device is touched.
@@ -98,6 +101,67 @@ def scan(body, carry, layers):
 
 def _add_trips(n: float) -> None:
     _tls.loop_iters = getattr(_tls, "loop_iters", 0) + _mult() * n
+
+
+def _counter():
+    return getattr(_tls, "counter", None) if _sink() is not None else None
+
+
+def scan_chunks(body, carry, xs, n: int):
+    """The reference's ``lax.scan`` of ``body(carry, *chunk) -> (carry,
+    y)`` over ``n`` equal chunks of axis 1 of each tensor of ``xs``;
+    returns ``(carry, the ys joined on axis 1)``.  While a profile records
+    on this thread, the first trip's ops are counted ``n`` times (the
+    reference's walk multiplies the body it traces once) and the trips go
+    to ``loop_iters``; the other trips and the join run unrecorded (the
+    scan stacks its outputs with no equation).  While
+    :mod:`~repro_torch.core.rewrite` traces, the loop's nodes are tagged,
+    as the reference's rewrite does not enter a scan."""
+    size = xs[0].shape[1] // n
+    chunk = lambda i: [t[:, i * size:(i + 1) * size] for t in xs]  # noqa: E731
+    counter = _counter()
+    if counter is not None:
+        outer = _mult()
+        _add_trips(n)
+        _tls.mult = outer * n
+        try:
+            carry, y = body(carry, *chunk(0))
+        finally:
+            _tls.mult = outer
+        ys = [y]
+        counter.quiet += 1
+        try:
+            for i in range(1, n):
+                carry, y = body(carry, *chunk(i))
+                ys.append(y)
+            return carry, torch.cat(ys, dim=1)
+        finally:
+            counter.quiet -= 1
+    from repro_torch.core import rewrite
+
+    ys = []
+    with rewrite.scan_body():
+        for i in range(n):
+            carry, y = body(carry, *chunk(i))
+            ys.append(y)
+        return carry, torch.cat(ys, dim=1)
+
+
+def jitted(fn, *args):
+    """``fn(*args)`` for a function the reference calls jitted
+    (``jax.nn.silu``, ``jax.nn.softplus``): its walk counts one ``jit``
+    equation that moves the inputs and the output and does not enter it,
+    and so does a recording profile here."""
+    counter = _counter()
+    if counter is None:
+        return fn(*args)
+    counter.quiet += 1
+    try:
+        out = fn(*args)
+    finally:
+        counter.quiet -= 1
+    counter._account("aten.jit", list(args), [out])
+    return out
 
 
 def _attention_trips(q, k, kwargs) -> int:

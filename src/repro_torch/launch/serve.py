@@ -4,6 +4,8 @@
     python -m repro_torch.launch.serve --arch qwen3-8b --lm --requests 32 \
         --kv-quant int8
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --lm --requests 32
+    python -m repro_torch.launch.serve --arch hymba-1.5b --lm --requests 32 \
+        --kv-quant int8
 
 compiles the model at v4 (``marvel.compile``: profile -> classify -> the
 class's extension table -> the hand-written CUDA kernels), serves a seeded
@@ -248,8 +250,9 @@ def main(argv=None):
                            "resnet50, mobilenetv2, densenet121)")
     what.add_argument("--arch",
                       help="LM to serve (qwen3-8b, granite-3-2b, "
-                           "starcoder2-3b, rwkv6-1.6b): the legacy wave "
-                           "loop, or the continuous-batching tier with --lm")
+                           "starcoder2-3b, hymba-1.5b, rwkv6-1.6b): the "
+                           "legacy wave loop, or the continuous-batching "
+                           "tier with --lm")
     ap.add_argument("--lm", action="store_true",
                     help="serve --arch through the continuous-batching tier")
     ap.add_argument("--smoke", action="store_true",
@@ -261,8 +264,9 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--kv-quant", choices=("int8",), default=None,
-                    help="int8 KV cache (attention families; rwkv's "
-                         "recurrent state refuses it)")
+                    help="int8 KV cache (attention families; hymba's "
+                         "SSM state stays f32, rwkv's recurrent state "
+                         "refuses it)")
     ap.add_argument("--supervised", action="store_true",
                     help="run the tier under the fault-tolerant supervisor "
                          "(prints Prometheus metrics on exit)")

@@ -1,10 +1,12 @@
-"""LM assembly for the dense family (granite, qwen3, starcoder2) and the
-rwkv family (rwkv6), the counterpart of the reference's
-``models/transformer.py``.
+"""LM assembly for the dense family (granite, qwen3, starcoder2), the rwkv
+family (rwkv6) and the hybrid family (hymba), the counterpart of the
+reference's ``models/transformer.py``.
 
 Params are a dict: ``{"embed": {"table": (V, d)}, "ln_f": (d,), "layers":
 [one dict per layer]}``; a dense layer holds ``ln1``, ``attn``, ``ln2`` and
-``mlp``, an rwkv layer the flat dict of :func:`repro_torch.models.rwkv.
+``mlp``, a hybrid layer adds ``ssm`` (:func:`repro_torch.models.ssm.
+ssm_init`) and the ``attn_out_norm``/``ssm_out_norm`` scales of its two
+heads, an rwkv layer is the flat dict of :func:`repro_torch.models.rwkv.
 rwkv_layer_init`, and rwkv adds the top-level ``ln0_s``/``ln0_b`` LayerNorm
 after the embedding.  The reference stacks the layers on a leading axis and
 scans them; here a list runs in a Python loop (:func:`repro_torch.core.
@@ -15,12 +17,16 @@ reference's tree.
 The decode state is ``{"index": (B,) int32, "cache": {...}}``.  Dense: the
 cache is ``{"k", "v": (L, B, Smax, K, dh)}``, with int8 ``k``/``v`` and f32
 ``k_scale``/``v_scale`` (L, B, Smax, K) planes when ``kv_quant="int8"``;
-:func:`decode_step` writes each lane's new K/V into it in place.  rwkv: the
-recurrent state ``{"s": (L, B, H, N, N) f32, "tm_prev", "cm_prev": (L, B,
-d)}``, with no position axis; :func:`decode_step` returns it in new
-tensors.  Either way the step returns a new ``index``.
+:func:`decode_step` writes each lane's new K/V into it in place.  Hybrid:
+the same K/V pools, rolling over ``Smax = min(max_len, window)`` rows,
+plus the SSM's ``h`` (L, B, d_inner, N) and ``conv`` (L, B, K - 1,
+d_inner) f32 state, which :func:`decode_step` returns in new tensors (a
+step repeated from the old state, as a retry is, applies the recurrence
+once).  rwkv: the recurrent state ``{"s": (L, B, H, N, N) f32, "tm_prev",
+"cm_prev": (L, B, d)}``, with no position axis, in new tensors.  Either way
+the step returns a new ``index``.
 
-The other families (moe, mla, hybrid, enc_dec) come with later slices.
+The other families (moe, mla, enc_dec, vlm) come with later slices.
 """
 from __future__ import annotations
 
@@ -31,8 +37,9 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core import profiler
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as RWKV
+from repro_torch.models import ssm as SSM
 
-FAMILIES = ("dense", "rwkv")
+FAMILIES = ("dense", "rwkv", "hybrid")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -61,6 +68,19 @@ def _dense_layer_init(gen, cfg, dtype, device):
     }
 
 
+def _hybrid_layer_init(gen, cfg, dtype, device):
+    ones = dict(dtype=dtype, device=device)
+    return {
+        "ln1": torch.ones(cfg.d_model, **ones),
+        "attn": L.attn_init(gen, cfg, dtype, device=device),
+        "ssm": SSM.ssm_init(gen, cfg, dtype, device=device),
+        "attn_out_norm": torch.ones(cfg.d_model, **ones),
+        "ssm_out_norm": torch.ones(cfg.d_model, **ones),
+        "ln2": torch.ones(cfg.d_model, **ones),
+        "mlp": L.mlp_init(gen, cfg, dtype, device=device),
+    }
+
+
 def init_params(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
     """Random params in ``cfg.param_dtype`` with the reference's
     distributions (``dense_init``: N(0, 1)/sqrt(fan_in); the embedding at
@@ -80,6 +100,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
         params["ln0_s"] = torch.ones(cfg.d_model, dtype=dtype, device=device)
         params["ln0_b"] = torch.zeros(cfg.d_model, dtype=dtype, device=device)
         layer_init = RWKV.rwkv_layer_init
+    elif cfg.family == "hybrid":
+        layer_init = _hybrid_layer_init
     else:
         layer_init = _dense_layer_init
     params["layers"] = [layer_init(gen, cfg, dtype, device)
@@ -104,15 +126,21 @@ def _map(tree, fn):
 
 def params_from_jax(tree, cfg: ArchConfig, device="cpu") -> dict:
     """The reference's param tree (numpy leaves, bf16 as ``ml_dtypes``,
-    layers stacked on a leading L axis) -> the port's, on ``device``, bit
-    for bit, every leaf in its own dtype (rwkv's ``w0`` and ``u`` f32)."""
+    layers stacked on a leading L axis, or a list of layers as the
+    reference's ``ssm_stack_init`` makes) -> the port's, on ``device``, bit
+    for bit, every leaf in its own dtype (rwkv's ``w0`` and ``u``, the
+    SSM's ``A_log`` and ``D`` f32)."""
     _check_family(cfg)
+    to = lambda a: _to_torch(a, device)  # noqa: E731
+    if isinstance(tree["layers"], (list, tuple)):
+        return {name: ([_map(p, to) for p in sub] if name == "layers"
+                       else _map(sub, to)) for name, sub in tree.items()}
     first = tree["layers"]
     while isinstance(first, dict):
         first = next(iter(first.values()))
     n_layers = np.asarray(first).shape[0]
-    out = {name: _map(sub, lambda a: _to_torch(a, device))
-           for name, sub in tree.items() if name != "layers"}
+    out = {name: _map(sub, to) for name, sub in tree.items()
+           if name != "layers"}
     out["layers"] = [_map(tree["layers"], lambda a, i=i: _to_torch(
         np.asarray(a)[i], device)) for i in range(n_layers)]
     return out
@@ -132,6 +160,22 @@ def _block_dense(p, x, cfg, run, positions, causal=True):
     return L.mlp(p["mlp"], h2, cfg, residual=x)  # acc_mac skip-add
 
 
+def _mix(p, a, s, cfg):
+    """The hybrid layer's two heads, each normalised, averaged."""
+    return 0.5 * (L.rms_norm(a, p["attn_out_norm"], cfg.norm_eps)
+                  + L.rms_norm(s, p["ssm_out_norm"], cfg.norm_eps))
+
+
+def _block_hybrid(p, x, cfg, run, positions):
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    a = L.attention(p["attn"], h, cfg, positions=positions, causal=True,
+                    window=cfg.sliding_window or None,
+                    attn_impl=run.attn_impl, chunk=run.attn_chunk)
+    s = SSM.ssm_forward(p["ssm"], h, cfg, chunk=run.ssm_chunk)
+    x, h2 = L.residual_rmsnorm(x, _mix(p, a, s, cfg), p["ln2"], cfg.norm_eps)
+    return L.mlp(p["mlp"], h2, cfg, residual=x)  # acc_mac skip-add
+
+
 def forward_hidden(params, tokens, cfg: ArchConfig, run: RunConfig):
     """tokens: (B, S) -> (hidden (B, S, d), aux, prefix_len)."""
     _check_family(cfg)
@@ -142,7 +186,8 @@ def forward_hidden(params, tokens, cfg: ArchConfig, run: RunConfig):
             p, x, cfg, chunk=run.wkv_chunk)
     else:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        body = lambda p, x: _block_dense(  # noqa: E731
+        block = _block_hybrid if cfg.family == "hybrid" else _block_dense
+        body = lambda p, x: block(  # noqa: E731
             p, x, cfg, run, positions)
     x = profiler.scan(body, x, params["layers"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -164,53 +209,53 @@ def init_decode_state(params, cfg: ArchConfig, run: RunConfig, batch: int,
                       max_len: int, kv_quant=None) -> dict:
     """The per-layer cache (leading L axis) and the per-lane position
     index, on the params' device.  ``kv_quant="int8"`` stores the KV pools
-    as int8 codes with per-(position, head) f32 scale planes (4x smaller);
-    rwkv's recurrent state has no KV layout and refuses it, as the
-    reference does."""
+    as int8 codes with per-(position, head) f32 scale planes (4x smaller),
+    and passes hybrid's SSM state through as it is; rwkv's recurrent state
+    has no KV layout and refuses it, as the reference does."""
     del run
     _check_family(cfg)
     table = params["embed"]["table"]
     dev, dtype = table.device, table.dtype
     n_layers = len(params["layers"])
+    index = torch.zeros(batch, dtype=torch.int32, device=dev)
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"unknown kv_quant {kv_quant!r} (want 'int8')")
     if cfg.family == "rwkv":
         cache = {name: t.new_zeros((n_layers, *t.shape)) for name, t in
                  RWKV.rwkv_init_state(cfg, batch, dtype, dev).items()}
         if kv_quant is not None:
-            if kv_quant != "int8":
-                raise ValueError(
-                    f"unknown kv_quant {kv_quant!r} (want 'int8')")
             raise ValueError(
                 "kv_quant='int8' needs a {'k','v'} cache layout; this family "
                 f"caches {sorted(cache)} (MLA/paired-MoE/RWKV are "
                 "unsupported)")
-        return {"index": torch.zeros(batch, dtype=torch.int32, device=dev),
-                "cache": cache}
+        return {"index": index, "cache": cache}
     kv, dh = cfg.n_kv_heads, cfg.d_head
     smax = (min(max_len, cfg.sliding_window) if cfg.sliding_window
             else max_len)
     shape = (n_layers, batch, smax, kv, dh)
-    state = {"index": torch.zeros(batch, dtype=torch.int32, device=dev)}
     if kv_quant is None:
-        state["cache"] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                          "v": torch.zeros(shape, dtype=dtype, device=dev)}
-    elif kv_quant == "int8":
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    else:
         int8 = dict(dtype=torch.int8, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
-        state["cache"] = {"k": torch.zeros(shape, **int8),
-                          "v": torch.zeros(shape, **int8),
-                          "k_scale": torch.zeros(shape[:-1], **f32),
-                          "v_scale": torch.zeros(shape[:-1], **f32)}
-    else:
-        raise ValueError(f"unknown kv_quant {kv_quant!r} (want 'int8')")
-    return state
+        cache = {"k": torch.zeros(shape, **int8),
+                 "v": torch.zeros(shape, **int8),
+                 "k_scale": torch.zeros(shape[:-1], **f32),
+                 "v_scale": torch.zeros(shape[:-1], **f32)}
+    if cfg.family == "hybrid":
+        cache.update({name: t.new_zeros((n_layers, *t.shape)) for name, t in
+                      SSM.ssm_init_state(cfg, batch, dev).items()})
+    return {"index": index, "cache": cache}
 
 
 def decode_step(params, state, tokens, cfg: ArchConfig, run: RunConfig):
-    """tokens: (B, 1) -> (logits (B, 1, V_padded), new state).  Dense: the
-    new state holds the same cache (its rows at each lane's index written
-    in place) and ``index + 1``; the old state's index is untouched, so a
-    step may be repeated from it (retry, warmup).  rwkv: the new state's
-    recurrent cache is new tensors and the old state is untouched."""
+    """tokens: (B, 1) -> (logits (B, 1, V_padded), new state).  Dense and
+    hybrid: the new state holds the same K/V pools (their rows at each
+    lane's index written in place) and ``index + 1``; the old state's index
+    is untouched, so a step may be repeated from it (retry, warmup).
+    Hybrid's SSM state and rwkv's recurrent cache are new tensors in the
+    new state, and the old state's are untouched."""
     del run
     _check_family(cfg)
     idx = state["index"]
@@ -227,13 +272,25 @@ def decode_step(params, state, tokens, cfg: ArchConfig, run: RunConfig):
                  for name in cache}
     else:
         window = cfg.sliding_window or None
+        ssm_steps = []
         for i, p in enumerate(params["layers"]):
             c = {name: t[i] for name, t in cache.items()}
             h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-            a, _ = L.attention_decode(p["attn"], h, c, idx, cfg,
+            attn_c = {name: c[name] for name in ("k", "v", "k_scale",
+                                                 "v_scale") if name in c}
+            a, _ = L.attention_decode(p["attn"], h, attn_c, idx, cfg,
                                       window=window)
+            if cfg.family == "hybrid":
+                s, sc2 = SSM.ssm_decode(p["ssm"], h, {"h": c["h"],
+                                                      "conv": c["conv"]}, cfg)
+                ssm_steps.append(sc2)
+                a = _mix(p, a, s, cfg)
             x, h2 = L.residual_rmsnorm(x, a, p["ln2"], cfg.norm_eps)
             x = L.mlp(p["mlp"], h2, cfg, residual=x)  # acc_mac skip-add
+        if ssm_steps:
+            cache = dict(cache, **{name: torch.stack([c[name] for c in
+                                                      ssm_steps])
+                                   for name in ("h", "conv")})
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.embed_logits(params["embed"], x)
     return logits, dict(state, cache=cache, index=idx + 1)

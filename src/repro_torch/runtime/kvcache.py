@@ -18,10 +18,11 @@ individual **slots** (lanes of the batch dimension):
   masks attention past each lane's ``kv_len``, so stale KV data left by a
   previous occupant of a slot never contributes: reclaiming a slot resets
   its position index to 0.  A cache leaf with no position axis (rwkv's
-  recurrent state ``s``, ``tm_prev``, ``cm_prev``) has nothing to mask, so
-  its rows of the slot are zeroed as well: every leaf but the KV pools of
-  :data:`POSITION_LEAVES`.  (The reference resets only the index, and a
-  reused rwkv slot starts from its previous sequence's state.)
+  recurrent state ``s``, ``tm_prev``, ``cm_prev``; hymba's SSM ``h`` and
+  ``conv``) has nothing to mask, so its rows of the slot are zeroed as
+  well: every leaf but the KV pools of :data:`POSITION_LEAVES`.  (The
+  reference resets only the index, and a reused rwkv or hymba slot starts
+  from its previous sequence's state.)
 * **int8 KV quantization** (``kv_quant="int8"``) stores the pools as int8
   codes with per-(position, head) f32 scale planes — 4x smaller cache —
   quantize-on-write / dequant inside the attention pattern, handled by

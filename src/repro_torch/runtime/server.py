@@ -13,9 +13,10 @@ The queue/slot/metrics plumbing is the shared serving core in
 :class:`~repro_torch.runtime.batching.BoundedQueue` (``max_pending``), slot
 refill via :func:`~repro_torch.runtime.batching.refill_slots`, and a
 ``metrics()`` dict in the shape the CNN tier emits.  A refilled lane starts
-from a fresh slot: its position index and its recurrent cache rows (rwkv's)
-are zeroed (:func:`repro_torch.runtime.kvcache._fresh_slot`), where the
-reference resets the index alone.  The caller drives :meth:`ServeEngine.step`;
+from a fresh slot: its position index and its recurrent cache rows (rwkv's,
+hymba's SSM state) are zeroed (:func:`repro_torch.runtime.kvcache.
+_fresh_slot`), where the reference resets the index alone.  The caller
+drives :meth:`ServeEngine.step`;
 the continuous-batching tier with futures is
 :class:`~repro_torch.runtime.lm_server.AsyncLmEngine`.
 """

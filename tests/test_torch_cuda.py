@@ -40,7 +40,8 @@ address, which takes the scalar form; the global average at H*W = 1, 4
 (vector form) and 143 (rows form).
 
 The LM kernels: ``residual_rmsnorm`` on the grid's rows (33 x 96, 130 x
-257) and qwen3-8b's (8 and 2048 rows of 4096), ``flash_attention`` on the
+257), qwen3-8b's (8 and 2048 rows of 4096) and hymba-1.5b's (8 and 2048
+rows of 1600), ``flash_attention`` on the
 grid's grouped and ragged cases and qwen3-8b's heads, and the GEMM on bf16
 operands.  In f32 the tolerance is ``tol_from_acc(float32, K)`` (sum order
 over the reduction K); in bf16 the outputs may differ by one bf16 rounding
@@ -52,7 +53,9 @@ use (``hopper_selftest.cu``: K-major and MN-major A and B, register A) on
 random data against torch; the bf16 GEMM through its decode and wgmma
 forms at M in {1, 8, 16, 33, 64, 2047}, K in {64, 4096, 12288}, N in {8,
 1024, 2048, 4096}, every act and f32, bf16 or no residual, within the
-products' magnitude bound plus one bf16 rounding; the shapes that must
+products' magnitude bound plus one bf16 rounding, and at hymba-1.5b's
+shapes (N = 1600 and 320 end in half a wgmma column tile; K = 1600, 3200
+and 5504) with and without a residual; the shapes that must
 take the CUDA-core form; bf16 flash attention at d in {64, 128}, G in {1,
 4}, S in {1, 63, 128, 512}, causal and full, through the wgmma form.
 
@@ -623,6 +626,9 @@ RMSNORM_CASES = [
     dict(rows=8, d=4096, dtype="bfloat16"),
     dict(rows=2048, d=4096, dtype="bfloat16"),
     dict(rows=130, d=257, dtype="bfloat16"), dict(rows=8, d=4096),
+    # hymba-1.5b: a prefill's 2048 rows and a decode step's 8 of 1600
+    dict(rows=2048, d=1600, dtype="bfloat16"),
+    dict(rows=8, d=1600, dtype="bfloat16"),
 ]
 
 
@@ -833,6 +839,44 @@ def test_matmul_epilogue_tensor_core_forms(card, i):
     err = (got.float() - want).abs()
     tol = _gemm_case_tol(x2, w, want, es, eb, r2)
     assert (err <= tol).all(), (err / tol).max().item()
+
+
+# hymba-1.5b's GEMMs (M, K, N): its prefill's 2048 rows (q / o, k and v,
+# the SSM's out_proj, the MLP's down projection) and a decode step's 8;
+# N = 1600 and 320 end in a half column tile of the wgmma form
+HYMBA_GEMM_CASES = [(2048, 1600, 1600), (2048, 1600, 320), (2048, 3200, 1600),
+                    (2048, 5504, 1600), (8, 1600, 1600)]
+
+
+@pytest.mark.parametrize("with_res", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("mkn", HYMBA_GEMM_CASES, ids=str)
+def test_matmul_epilogue_hymba_shapes(card, mkn, with_res):
+    """bf16 GEMMs at hymba-1.5b's shapes through the form each takes
+    (decode at M = 8, wgmma at 2048), with and without a bf16 residual:
+    within :func:`_gemm_case_tol` of the plain f32 version, every column of
+    the ragged last tile included."""
+    from repro_torch.kernels import matmul_epilogue as me
+
+    m, k, n = mkn
+    r = _rng(m + k + n)
+    bf = torch.bfloat16
+    x = torch.from_numpy(r.standard_normal((m, k), np.float32)).to(card, bf)
+    w = torch.from_numpy(r.standard_normal((k, n), np.float32)
+                         / np.sqrt(k)).to(card, bf)
+    res = (torch.from_numpy(r.standard_normal((m, n), np.float32)).to(
+        card, bf) if with_res else None)
+    form = "decode" if m <= me.DECODE_M_MAX else "wgmma"
+    before = dict(me.matmul_epilogue.launches_by_form)
+    got = me.matmul_epilogue(x, w, residual=res)
+    torch.cuda.synchronize()
+    assert me.matmul_epilogue.launches_by_form[form] == before[form] + 1
+    assert got.dtype == bf and got.shape == (m, n)
+    x2, es, eb, r2 = me._prepare(x, w, None, None, None, res)
+    want = me._plain(x2, w, es, eb, r2, "none")
+    err = (got.float() - want).abs()
+    tol = _gemm_case_tol(x2, w, want, es, eb, r2)
+    assert (err <= tol).all(), (err / tol).max().item()
+    assert (err[:, -(n % 128 or 128):] <= tol[:, -(n % 128 or 128):]).all()
 
 
 def test_matmul_epilogue_routes_what_tensor_cores_cannot_take(card):

@@ -119,18 +119,40 @@ def test_lm_launcher_serves_the_smoke_variant_on_cpu(capsys, monkeypatch):
 
 
 def test_arch_registry_serves_the_dense_family_only():
-    """The served archs (the dense family and rwkv6); an arch of a family
-    the port does not serve yet is refused with its family named."""
+    """The served archs (the dense family, hymba and rwkv6); an arch of a
+    family the port does not serve yet is refused with its family named."""
     from repro_torch.configs import get_arch, list_archs
 
     assert list_archs() == ["granite-3-2b", "qwen3-8b", "starcoder2-3b",
-                            "rwkv6-1.6b"]
+                            "hymba-1.5b", "rwkv6-1.6b"]
     assert get_arch("qwen3-8b").family == "dense"
     assert get_arch("rwkv6-1.6b").family == "rwkv"
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        get_arch("hymba-1.5b")
+    assert get_arch("hymba-1.5b").family == "hybrid"
+    with pytest.raises(NotImplementedError, match="enc_dec"):
+        get_arch("whisper-tiny")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
+
+
+def test_lm_launcher_serves_hymba_smoke_on_cpu(capsys):
+    """hymba-1.5b's smoke variant through the continuous-batching tier with
+    int8 KV (its SSM state passed through), supervised, and the legacy wave
+    loop."""
+    m = tserve.main(["--arch", "hymba-1.5b", "--smoke", "--lm", "--requests",
+                     "5", "--max-new", "3", "--slots", "2", "--kv-quant",
+                     "int8", "--device", "cpu"])
+    assert m["completed"] == 5 and m["tokens_total"] == 15
+    assert m["kv_quant"] == "int8" and m["errors"] == 0
+    assert m["kv_slot_reuses"] > 0
+    assert "0 new buckets after warmup" in capsys.readouterr().out
+    m = tserve.main(["--arch", "hymba-1.5b", "--smoke", "--lm",
+                     "--supervised", "--workers", "2", "--requests", "4",
+                     "--max-new", "2", "--slots", "2", "--device", "cpu"])
+    assert m["aggregate"]["healthy_workers"] == 2
+    assert "served 4 sequences (8 tokens)" in capsys.readouterr().out
+    m = tserve.main(["--arch", "hymba-1.5b", "--smoke", "--requests", "3",
+                     "--max-new", "2", "--slots", "2", "--device", "cpu"])
+    assert m["completed"] == 3 and m["submitted"] == 3
 
 
 def test_lm_launcher_serves_rwkv_smoke_on_cpu(capsys):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The port's quickest proof on one CUDA card: build the kernels, hold each
 against its plain PyTorch version, then serve ResNet50, MobileNetV2,
-qwen3-8b and rwkv6-1.6b at v4, and ResNet50 and qwen3-8b supervised, with
-workers killed mid-wave.
+qwen3-8b, rwkv6-1.6b and hymba-1.5b at v4, whisper-tiny through the wave
+loop, and ResNet50 and qwen3-8b supervised, with workers killed mid-wave.
 
     python3 chip_smoke.py
 
@@ -192,6 +192,40 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    reference's atol 2e-3 / rtol 1e-3;
 11f. the pure-SSM stack (``models/ssm.py::ssm_stack_forward``) compiled on
    the card: class ``ssm_lm``, 3 GEMM and 1 norm launches a layer;
+12a. whisper-tiny at full width and depth in bf16 (4 encoder and 4 decoder
+   layers, d_model 384, 6 heads of 64, d_ff 1536 with gelu, biases drawn
+   N(0, 0.02^2) over the init's zeros so every GEMM launch carries one;
+   seed 0 on the card), ``forward_lm(params, tokens, cfg, run, frames=)``
+   compiled at v4 with tokens and frames as example args: class
+   ``dense_lm`` (the reference's ``classify`` never returns
+   ``enc_dec_lm``), its report equal number for number to the CPU
+   compile's;
+12b. one recorded prefill at B = 4, 1500 frames, S = 448 (Whisper's text
+   context): 64 GEMM (wgmma), 8 norm and 4 flash launches (the decoder's
+   causal self-attention, wgmma at d = 64; the encoder's and the
+   cross-attention over 1500 frames take the plain path in both
+   packages), every one held, each shape timed beside its bound and its
+   library call (cuBLAS, SDPA); the forward's wall and device busy time
+   against its kernels' time;
+12c. its v4 logits against the same model at v0 on the card within
+   ``WHISPER_V0_TIMES_NOISE`` times the response to one-ulp noise on every
+   site's input; a GEMM kernel that drops its bias (planted) must exceed
+   it;
+12d. ``init_decode_state`` with frames for 8 slots under the v4 table (the
+   encoder and each layer's cross K/V: 32 GEMM and 4 norm launches, every
+   one held), then one recorded decode step (32 GEMM in the decode form, 4
+   norm launches; cross-attention plain, as in the reference) held and
+   timed, its wall against its kernels' time;
+12e. the legacy wave loop (``ServeEngine(frames=)``, the plain versions)
+   serves 8 requests with each lane's own frames: 0 launches, every stream
+   equal to a static greedy decode with the same frames, tokens/s
+   printed; ``python -m repro_torch.launch.serve --arch whisper-tiny``
+   serves on the card, and ``--lm`` is refused;
+12f. full depth at B = 1, S = 64: the card against the CPU program within
+   ``E2E_LIMIT``; the smoke variant (2 + 2 layers, 16 frames) recorded at
+   B = 2, S = 32: 32 GEMM, 4 norm and 6 flash launches (fma form at d =
+   32), the encoder's and the cross-attention's non-causal, the latter
+   with 32 queries over 16 keys, every one held;
 10a. supervised serving, in process: a ``Supervisor`` over 2 workers of the
    ResNet50 v4 program (``max_batch=8``).  A recorded 32-request wave
    (``BatchRecorder`` at the program boundary: each batch's counts from 0,
@@ -280,7 +314,7 @@ E2E_LIMIT = {"resnet50 v4": 2e-2, "mobilenetv2 v4": 1e-1,
              "mobilenetv2 v2": 2e-1, "mobilenetv1 v4": 2e-2,
              "densenet121 v4": 1e-2, "vgg16 v4": 6e-2, "lenet5 v4": 5e-7,
              "qwen3-8b 2-layer v4": 5e-2,
-             "rwkv6-1.6b 2-layer v4": 4e-2}
+             "rwkv6-1.6b 2-layer v4": 4e-2, "whisper-tiny v4": 5e-2}
 V0_LIMIT = 1e-4  # the v0 forward on the card vs the CPU
 
 
@@ -1033,6 +1067,23 @@ PER_FORWARD = {
     # scan has no kernel, in both packages
     "hymba-1.5b v4 prefill": {"residual_rmsnorm": 32, "matmul_epilogue": 224},
     "hymba-1.5b v4 decode": {"residual_rmsnorm": 32, "matmul_epilogue": 224},
+    # whisper-tiny, 4 encoder layers (q, k, v, o and the MLP's 2: 6 GEMMs
+    # and 1 fused norm each) and 4 decoder layers (self q, k, v, o, cross q
+    # and o, encoder_kv's k and v, the MLP's 2: 10 GEMMs and 1 fused norm
+    # each); flash launches for the decoder's causal self-attention only:
+    # over 1500 frames (not a multiple of the 128-key tile) the encoder and
+    # the cross-attention take the plain path, as in the reference.  The
+    # decode state runs the encoder and 2 cross K/V GEMMs a layer; a decode
+    # step 8 GEMMs a layer (cross k/v come from the state)
+    "whisper-tiny v4 prefill": {"flash_attention": 4, "residual_rmsnorm": 8,
+                                "matmul_epilogue": 64},
+    "whisper-tiny v4 decode state": {"residual_rmsnorm": 4,
+                                     "matmul_epilogue": 32},
+    "whisper-tiny v4 decode": {"residual_rmsnorm": 4, "matmul_epilogue": 32},
+    # the smoke variant (2 + 2 layers, 16 frames): the encoder's and the
+    # cross-attention's flash launches too (16 keys: one whole tile)
+    "whisper-tiny smoke v4": {"flash_attention": 6, "residual_rmsnorm": 4,
+                              "matmul_epilogue": 32},
 }
 
 # the form each launch of a kernel with forms takes, per forward: the LMs'
@@ -1049,6 +1100,12 @@ FORWARD_FORMS = {
     "rwkv6-1.6b v4 prefill": {"matmul_epilogue": "wgmma"},
     "hymba-1.5b v4 prefill": {"matmul_epilogue": "wgmma"},
     "hymba-1.5b v4 decode": {"matmul_epilogue": "decode"},
+    "whisper-tiny v4 prefill": {"matmul_epilogue": "wgmma",
+                                "flash_attention": "wgmma"},
+    "whisper-tiny v4 decode state": {"matmul_epilogue": "wgmma"},
+    "whisper-tiny v4 decode": {"matmul_epilogue": "decode"},
+    # heads of 32: flash in the fma form
+    "whisper-tiny smoke v4": {"matmul_epilogue": "wgmma"},
 }
 
 
@@ -1308,7 +1365,8 @@ def site_noise_response(prog, batch, got, seeds: int = 3) -> float:
     relative noise of one unit in the last place on the input of every
     dispatch site (1e-7 for f32 inputs, bf16's epsilon 2**-7 for bf16): the
     size of a sum-order difference in each layer, carried through the
-    rest of the program (the int8 path of the CNNs)."""
+    rest of the program (the int8 path of the CNNs).  ``batch`` is the
+    program's input, or a tuple of its inputs."""
     import torch
     from repro_torch.core import dispatch
 
@@ -1332,7 +1390,8 @@ def site_noise_response(prog, batch, got, seeds: int = 3) -> float:
     dispatch.call = noisy
     try:
         for _ in range(seeds):
-            worst = max(worst, rel_l2(prog(batch).cpu(), got))
+            args = batch if isinstance(batch, tuple) else (batch,)
+            worst = max(worst, rel_l2(prog(*args).cpu(), got))
     finally:
         dispatch.call = orig
     return worst
@@ -2068,7 +2127,8 @@ def lm_phases(dev, card):
     log(f"{LM_ARCH} v4 decode step, {LM_SLOTS} slots: "
         f"{statistics.median(walls):.2f} ms wall (median of 5), of which its "
         f"kernels' device time {dec_ms:.3f} ms (" + ", ".join(
-            f"{k} {r['ms']:.3f}, bound {r['bound_ms']:.3f}"
+            f"{k} {r['ms']:.4f}, bound {r['bound_ms']:.5f}, plain "
+            f"{r['plain_ms']:.4f}"
             + (f", fma form {r['fma_ms']:.3f}" if "fma_ms" in r else "")
             for k, r in dec.items()) + ") on " + card)
 
@@ -2778,6 +2838,331 @@ def hymba_phases(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# the enc_dec path: whisper-tiny at full width and depth
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-tiny"
+# (B, frames, S) of the recorded prefill: the encoder's 1500 frames (30 s
+# of audio) and Whisper's 448-token text context (arXiv:2212.04356)
+WHISPER_PREFILL = (4, 1500, 448)
+WHISPER_REQUESTS = 8
+# the v4 logits against the same model at v0 on the card: at most this many
+# times the v4 program's response to one-ulp noise on every site's input
+WHISPER_V0_TIMES_NOISE = 3.0
+WHISPER_E2E = (1, 64)  # (B, S) of the card-vs-CPU check, full depth
+WHISPER_SMOKE = (2, 32)  # (B, S) of the smoke variant: 32 queries, 16 frames
+# the std of the attention and MLP biases drawn over the init's zeros, so
+# every GEMM launch carries a bias through its epilogue
+WHISPER_BIAS_STD = 0.1
+
+
+def whisper_model(cfg, dev, seed):
+    """whisper-tiny's params drawn on the card from ``seed``: the
+    reference's init (biases zero), then every bias drawn from N(0,
+    ``WHISPER_BIAS_STD``**2) from the same generator."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = T.init_params(gen, cfg)
+    for layer in params["enc_layers"] + params["layers"]:
+        for block in ("attn", "xattn", "mlp"):
+            for name, t in layer.get(block, {}).items():
+                if name.startswith("b"):
+                    t.copy_(torch.randn(t.shape, generator=gen, device=dev)
+                            * WHISPER_BIAS_STD)
+    return params, gen
+
+
+def whisper_program(params, cfg, run, dev, level="v4"):
+    """``forward_lm`` with frames compiled on ``dev`` (on the CPU: the
+    kernels' plain versions under the same table)."""
+    import numpy as np
+    import torch
+    from repro_torch import marvel
+    from repro_torch.models import transformer as T
+
+    dt = T.torch_dtype(cfg.param_dtype)
+    frames = torch.zeros((1, cfg.n_frames, cfg.d_model), dtype=dt,
+                         device=dev)
+    return marvel.compile(
+        lambda p, t, f: T.forward_lm(p, t, cfg, run, frames=f)[0],
+        np.ones((1, 8), np.int32), frames, params=params, level=level,
+        backend="cuda", device=dev)
+
+
+def whisper_phases(dev, card):
+    """12a-12f: whisper-tiny at full width and depth in bf16 on the card,
+    and its smoke variant's cross-attention through the flash kernel."""
+    import numpy as np
+    import torch
+    from repro_torch import marvel
+    from repro_torch.configs import RunConfig, get_arch, smoke_variant
+    from repro_torch.kernels import matmul_epilogue as me
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.lm_server import static_decode
+    from repro_torch.runtime.server import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    # 12a) build on the card and compile at v4; the report against the
+    # CPU compile's
+    cfg = get_arch(WHISPER_ARCH)
+    b, nf, s = WHISPER_PREFILL
+    run = RunConfig(seq_len=s, global_batch=b, mode="prefill")
+    t0 = time.perf_counter()
+    params, gen = whisper_model(cfg, dev, 0)
+    torch.cuda.synchronize()
+    log(f"{WHISPER_ARCH}: {cfg.n_enc_layers} encoder + {cfg.n_layers} "
+        f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.d_head}, d_ff {cfg.d_ff} ({cfg.act}), vocab {cfg.vocab}, "
+        f"{cfg.n_frames} frames: {tree_numel(params) / 1e6:.2f} M parameters "
+        f"in {cfg.param_dtype} drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s (biases N(0, "
+        f"{WHISPER_BIAS_STD}^2))")
+    t0 = time.perf_counter()
+    prog = whisper_program(params, cfg, run, dev)
+    compile_s = time.perf_counter() - t0
+    cpu_prog = whisper_program(tree_to(params, "cpu"), cfg, run, "cpu")
+    assert prog.model_class == cpu_prog.model_class == "dense_lm", (
+        prog.model_class, cpu_prog.model_class)
+    assert report_numbers(prog.report) == report_numbers(cpu_prog.report)
+    for pat in ("flash_attention", "residual_rmsnorm", "matmul_epilogue"):
+        assert prog.resolved_extensions.get(pat) == "cuda", prog.table
+    sites = prog.profile.site_counts
+    log(f"compiled {WHISPER_ARCH} v4 in {compile_s:.1f} s (the report "
+        f"equals the CPU compile's, number for number): {prog.summary()}")
+    rng = np.random.default_rng(12)
+
+    # 12b) one recorded prefill forward, every launch held
+    label = f"{WHISPER_ARCH} v4 prefill"
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (b, s)).astype(
+        np.int32)).to(dev)
+    frames = torch.randn((b, nf, cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    rec, counts, logits = record_launches(prog, tokens, frames)
+    check_counts(label, counts)
+    assert counts["matmul_epilogue"] == (
+        cfg.n_enc_layers * 6 + cfg.n_layers * 10), counts
+    assert sites["matmul_epilogue"] == 16 and sites["flash_attention"] == 3
+    assert logits.shape == (b, s, cfg.vocab_padded), logits.shape
+    assert torch.isfinite(logits).all(), "non-finite prefill logits"
+    got4 = logits.float().cpu()
+    del logits
+    log(f"{label} B={b} F={nf} S={s}: launches {counts}; the report's "
+        f"sites: matmul_epilogue {sites['matmul_epilogue']} (6 a encoder "
+        f"layer, 10 a decoder layer with encoder_kv), residual_rmsnorm "
+        f"{sites['residual_rmsnorm']}, flash_attention "
+        f"{sites['flash_attention']} (encoder, decoder self and cross); "
+        f"flash launches: the decoder's causal self-attention alone, the "
+        f"encoder's and the cross-attention over {nf} frames take the plain "
+        f"path in both packages ({nf} % 128 != 0)")
+    prefill = hold(rec, ("flash_attention", "residual_rmsnorm",
+                         "matmul_epilogue"), timed=True)
+    del rec
+    torch.cuda.empty_cache()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog(tokens, frames)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    busy = device_busy_ms(lambda: prog(tokens, frames))
+    kernel_ms = sum(r["ms"] for r in prefill.values())
+    log(f"{label} B={b} F={nf} S={s}: forward {statistics.median(walls):.2f} "
+        f"ms wall (median of 3), device busy "
+        + ("not measured" if busy is None else f"{busy:.3f} ms")
+        + f", of which its kernels' device time {kernel_ms:.3f} ms: "
+        + ", ".join(
+            f"{k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}, bound "
+            f"{r['bound_ms']:.4f}"
+            + ("" if r["library_ms"] is None
+               else f", library {r['library_ms']:.3f}")
+            + (f", fma form {r['fma_ms']:.3f}" if "fma_ms" in r else "")
+            + ")" for k, r in prefill.items()) + f" on {card}")
+
+    # 12c) the v4 logits against the same model at v0 on the card
+    prog0 = whisper_program(params, cfg, run, dev, level="v0")
+    with counted() as v0_launches:
+        want0 = prog0(tokens, frames).float().cpu()
+    assert all(v0_launches[k] == 0 for k in KERNELS), v0_launches
+    rel = rel_l2(got4, want0)
+    noise = site_noise_response(prog, (tokens, frames), got4, seeds=2)
+    limit = WHISPER_V0_TIMES_NOISE * noise
+    real = me._launch
+    me._launch = lambda x2, w, es, eb, r2, act, form=None: real(
+        x2, w, es, torch.zeros_like(eb), r2, act, form)
+    try:
+        bad = rel_l2(prog(tokens, frames).float().cpu(), want0)
+    finally:
+        me._launch = real
+    log(f"{label}: logits vs the same model at v0 on the card (plain "
+        f"versions, no launch) relative L2 {rel:.3e}; response to one-ulp "
+        f"noise on every site's input (max of 2) {noise:.3e}, limit "
+        f"{WHISPER_V0_TIMES_NOISE:g} times that, {limit:.3e}; planted fault "
+        f"'GEMM kernel without its bias' {bad:.3e}")
+    assert rel <= limit, (rel, limit)
+    assert bad > limit, ("planted no-bias fault passed", bad, limit)
+    del prog0, want0, got4
+    torch.cuda.empty_cache()
+
+    # 12d) the decode state for LM_SLOTS slots (the encoder and the cross
+    # K/V GEMMs run once), then one recorded decode step, under the table
+    slot_frames = torch.randn((LM_SLOTS, nf, cfg.d_model), generator=gen,
+                              device=dev).to(torch.bfloat16)
+    init_state = prog.table.bind(lambda f: T.init_decode_state(
+        params, cfg, run, batch=LM_SLOTS, max_len=LM_MAX_LEN, frames=f))
+    with torch.inference_mode():
+        rec, counts, state = record_launches(init_state, slot_frames)
+    check_counts(f"{WHISPER_ARCH} v4 decode state", counts)
+    xk = state["cross_kv"]["k"]
+    assert xk.shape == (cfg.n_layers, LM_SLOTS, nf, cfg.n_kv_heads,
+                        cfg.d_head), xk.shape
+    enc = hold(rec, ("residual_rmsnorm", "matmul_epilogue"), timed=False,
+               quiet=True)
+    del rec
+    log(f"{WHISPER_ARCH} v4 decode state, {LM_SLOTS} slots of {nf} frames: "
+        f"launches {counts} (the encoder and each layer's cross K/V), every "
+        f"one held: max |err| " + ", ".join(
+            f"{k} {r['max_abs_err']:.3e}" for k, r in enc.items()))
+    decode = prog.table.bind(
+        lambda st, tk: T.decode_step(params, st, tk, cfg, run))
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (LM_SLOTS, 1)).astype(
+        np.int32)).to(dev)
+    with torch.inference_mode():
+        for _ in range(8):
+            _, state = decode(state, toks)
+        rec, counts, (step_logits, _) = record_launches(decode, state, toks)
+        check_counts(f"{WHISPER_ARCH} v4 decode", counts)
+        assert torch.isfinite(step_logits).all()
+        dec = hold(rec, ("residual_rmsnorm", "matmul_epilogue"), timed=True)
+        del rec
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode(state, toks)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        busy = device_busy_ms(lambda: decode(state, toks))
+    dec_ms = sum(r["ms"] for r in dec.values())
+    log(f"{WHISPER_ARCH} v4 decode step, {LM_SLOTS} slots: launches "
+        f"{counts}; {statistics.median(walls):.2f} ms wall (median of 5), "
+        f"device busy " + ("not measured" if busy is None else
+                           f"{busy:.3f} ms")
+        + f", of which its kernels' device time {dec_ms:.3f} ms (" + ", ".join(
+            f"{k} {r['ms']:.4f}, bound {r['bound_ms']:.5f}, plain "
+            f"{r['plain_ms']:.4f}, library "
+            + ("null" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
+            for k, r in dec.items()) + f") on {card}")
+    del state
+    torch.cuda.empty_cache()
+
+    # 12e) the legacy wave loop (the plain versions, as the reference's
+    # loop runs its baselines): 8 requests, the streams against a static
+    # greedy decode with the same frames; the launcher on the card; --lm
+    # refused
+    wrun = RunConfig(seq_len=128, global_batch=LM_SLOTS, mode="decode",
+                     attn_chunk=32)
+    engine = ServeEngine(params, cfg, wrun, batch_slots=LM_SLOTS,
+                         max_len=128, frames=slot_frames)
+    prompts = launcher.lm_prompts(cfg.vocab, WHISPER_REQUESTS)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=LM_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    with counted() as wave_launches:
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    assert all(wave_launches[k] == 0 for k in KERNELS), wave_launches
+    assert all(r.done and len(r.generated) == LM_MAX_NEW for r in reqs)
+    fresh = T.init_decode_state(params, cfg, wrun, batch=LM_SLOTS,
+                                max_len=128, frames=slot_frames)
+    static = static_decode(
+        lambda st, tk: T.decode_step(params, st, tk, cfg, wrun), fresh,
+        prompts, LM_MAX_NEW, cfg.vocab)
+    for r in reqs:
+        assert r.generated == static[r.uid], r.uid
+    m = engine.metrics()
+    toks_out = sum(len(r.generated) for r in reqs)
+    log(f"{WHISPER_ARCH} wave loop, {LM_SLOTS} slots, each lane against its "
+        f"own {nf} frames: {WHISPER_REQUESTS} requests, {toks_out} tokens "
+        f"in {dt:.3f} s: {toks_out / dt:.1f} tokens/s, latency p50 "
+        f"{m['p50_latency_ms']:.1f} ms p99 {m['p99_latency_ms']:.1f} ms, 0 "
+        f"kernel launches (the plain versions); all {len(reqs)} streams "
+        f"equal a static greedy decode with the same frames, on {card}")
+    del engine, fresh
+    t0 = time.perf_counter()
+    lm = launcher.main(["--arch", WHISPER_ARCH, "--requests",
+                        str(WHISPER_REQUESTS)])
+    assert lm["completed"] == WHISPER_REQUESTS, lm
+    log(f"python -m repro_torch.launch.serve --arch {WHISPER_ARCH} "
+        f"--requests {WHISPER_REQUESTS}: served on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        launcher.main(["--arch", WHISPER_ARCH, "--lm"])
+    except ValueError as e:
+        assert "legacy wave loop" in str(e), e
+        log(f"--arch {WHISPER_ARCH} --lm refused: {e}")
+    else:
+        raise AssertionError("--lm served an enc_dec arch")
+    torch.cuda.empty_cache()
+
+    # 12f) full depth at B=1, S=64: the card against the CPU; then the
+    # smoke variant, whose encoder and cross-attention take the non-causal
+    # flash kernel with Sq != Skv
+    eb, es = WHISPER_E2E
+    e2e_tokens = rng.integers(1, cfg.vocab, (eb, es)).astype(np.int32)
+    e2e_frames = slot_frames[:eb]
+    t0 = time.perf_counter()
+    want = cpu_prog(e2e_tokens, e2e_frames.cpu())
+    cpu_s = time.perf_counter() - t0
+    tok_dev = torch.from_numpy(e2e_tokens).to(dev)
+    got = prog(tok_dev, e2e_frames).cpu()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    rel = rel_l2(got, want)
+    sites_noise = site_noise_response(prog, (tok_dev, e2e_frames), got)
+    limit = E2E_LIMIT[f"{WHISPER_ARCH} v4"]
+    log(f"{WHISPER_ARCH} v4 (full depth) B={eb} F={nf} S={es}: logits vs "
+        f"the CPU program ({cpu_s:.1f} s there) relative L2 {rel:.3e} "
+        f"(limit {limit:g}); response to one-ulp noise on every site's "
+        f"input (max of 3) {sites_noise:.3e}")
+    assert rel <= limit, rel
+    scfg = smoke_variant(cfg)
+    sb, ss = WHISPER_SMOKE
+    srun = RunConfig(seq_len=ss, global_batch=sb, attn_chunk=16)
+    sparams, sgen = whisper_model(scfg, dev, 1)
+    stoks = torch.from_numpy(rng.integers(1, scfg.vocab, (sb, ss)).astype(
+        np.int32)).to(dev)
+    sframes = torch.randn((sb, scfg.n_frames, scfg.d_model), generator=sgen,
+                          device=dev).to(torch.bfloat16)
+    sprog = whisper_program(sparams, scfg, srun, dev)
+    rec, counts, slog = record_launches(sprog, stoks, sframes)
+    check_counts(f"{WHISPER_ARCH} smoke v4", counts)
+    assert torch.isfinite(slog).all()
+    shapes = sorted((tuple(args[0].shape[1:2]), tuple(args[1].shape[1:2]),
+                     args[3]) for _, args, _ in rec["flash_attention"].values())
+    assert ((ss,), (scfg.n_frames,), False) in shapes, shapes
+    smoke = hold(rec, ("flash_attention", "residual_rmsnorm",
+                       "matmul_epilogue"), timed=True)
+    del rec
+    log(f"{WHISPER_ARCH} smoke variant ({scfg.n_enc_layers} + "
+        f"{scfg.n_layers} layers, d_model {scfg.d_model}, {scfg.n_frames} "
+        f"frames) v4 B={sb} S={ss}: launches {counts}; flash (Sq, Skv, "
+        f"causal) per shape {shapes}: the encoder's {scfg.n_frames} frames "
+        f"and the cross-attention's {ss} queries over them non-causal, every "
+        f"launch held: max |err| " + ", ".join(
+            f"{k} {r['max_abs_err']:.3e}" for k, r in smoke.items()))
+    log(f"{WHISPER_ARCH} phases: {time.perf_counter() - t_phase:.1f} s")
+    del params, prog, cpu_prog, sparams, sprog
+    torch.cuda.empty_cache()
+    return prefill, dec, smoke
+
+
+# ---------------------------------------------------------------------------
 # supervised serving: in-process and process-isolated workers
 # ---------------------------------------------------------------------------
 
@@ -3373,6 +3758,9 @@ def main() -> int:
     # 11) the hybrid_lm path: hymba-1.5b at full width; the ssm_lm stack
     hy_prefill, hy_dec = hymba_phases(dev, card)
 
+    # 12) the enc_dec path: whisper-tiny at full width and depth
+    wh_prefill, wh_dec, wh_smoke = whisper_phases(dev, card)
+
     # 10) supervised serving: in-process workers, process-isolated workers
     # sharing the card (ResNet50 and qwen3-8b)
     supervised_phases(prog, apply, in_shape, params_cpu, card)
@@ -3417,11 +3805,29 @@ def main() -> int:
             form_entry(f"{HYMBA_ARCH} v4 prefill",
                        hy_prefill["matmul_epilogue"], "wgmma"),
             form_entry(f"{HYMBA_ARCH} v4 decode step, {LM_SLOTS} slots",
-                       hy_dec["matmul_epilogue"], "decode")],
+                       hy_dec["matmul_epilogue"], "decode"),
+            form_entry(f"{WHISPER_ARCH} v4 prefill B=%d F=%d S=%d"
+                       % WHISPER_PREFILL, wh_prefill["matmul_epilogue"],
+                       "wgmma"),
+            form_entry(f"{WHISPER_ARCH} v4 decode step, {LM_SLOTS} slots",
+                       wh_dec["matmul_epilogue"], "decode")],
         "flash_attention": [
             form_entry(f"{LM_ARCH} v4 prefill", prefill["flash_attention"],
-                       "wgmma")],
+                       "wgmma"),
+            form_entry(f"{WHISPER_ARCH} v4 prefill B=%d F=%d S=%d"
+                       % WHISPER_PREFILL, wh_prefill["flash_attention"],
+                       "wgmma"),
+            form_entry(f"{WHISPER_ARCH} smoke v4 B=%d S=%d" % WHISPER_SMOKE
+                       + " (non-causal Sq != Skv launches among them)",
+                       wh_smoke["flash_attention"], "fma")],
     }
+    # the norm on whisper-tiny's forwards (its GEMMs and flash attention
+    # are under tensor_core)
+    enc_dec = {"residual_rmsnorm": [
+        form_entry(f"{WHISPER_ARCH} v4 prefill B=%d F=%d S=%d"
+                   % WHISPER_PREFILL, wh_prefill["residual_rmsnorm"], None),
+        form_entry(f"{WHISPER_ARCH} v4 decode step, {LM_SLOTS} slots",
+                   wh_dec["residual_rmsnorm"], None)]}
     # the norm on hymba-1.5b's forwards (its GEMMs are under tensor_core)
     hybrid = {"residual_rmsnorm": [
         form_entry(f"{HYMBA_ARCH} v4 prefill", hy_prefill["residual_rmsnorm"],
@@ -3466,6 +3872,7 @@ def main() -> int:
             "path": paths.get(name, "resnet50 v4 serve"),
             "tensor_core_forms": tensor_core.get(name, []),
             "hybrid_forwards": hybrid.get(name, []),
+            "enc_dec_forwards": enc_dec.get(name, []),
             "cnn_forwards": cnn_forwards.get(name, []),
         })
     fell_back = [p.summary() for p in PROGRAMS if p.rewrite_fallbacks]

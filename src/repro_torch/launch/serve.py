@@ -27,7 +27,10 @@ Prometheus snapshot printed on exit)::
 workers share the card): a ``kill -9`` costs one worker, never the fleet.
 ``--arch`` without ``--lm`` runs the legacy wave loop
 (:class:`~repro_torch.runtime.server.ServeEngine`, the plain versions), as
-the reference's launcher does.
+the reference's launcher does.  The enc_dec family (whisper-tiny) is served
+there alone, each lane against its own frames drawn from the seed::
+
+    python -m repro_torch.launch.serve --arch whisper-tiny --requests 8
 """
 from __future__ import annotations
 
@@ -172,11 +175,26 @@ def serve_lm_supervised(args, engine_kwargs) -> dict:
     return asyncio.run(main())
 
 
+def refuse_enc_dec(arch: str) -> None:
+    """The continuous-batching tier builds its decode states without
+    frames (as the reference's does), so an enc_dec arch is refused."""
+    from repro_torch.configs import get_arch
+
+    family = get_arch(arch).family
+    if family == "enc_dec":
+        raise ValueError(
+            f"{arch} ({family} family) decodes against per-request audio "
+            "frames, which the continuous-batching tier (--lm, --supervised) "
+            "does not take; serve it through the legacy wave loop: --arch "
+            f"{arch} without --lm")
+
+
 def serve_lm(args) -> dict:
     """The continuous-batching LM tier (``--lm``), supervised with
     ``--supervised``."""
     from repro_torch.runtime.actor import lm_program_factory
 
+    refuse_enc_dec(args.arch)
     engine_kwargs = dict(slots=args.slots, max_len=args.max_len,
                          kv_quant=args.kv_quant)
     if args.supervised:
@@ -214,7 +232,8 @@ def serve_lm(args) -> dict:
 def serve_wave_loop(args) -> dict:
     """The legacy wave loop: a caller-driven
     :class:`~repro_torch.runtime.server.ServeEngine` over the plain versions,
-    random weights from seed 0 on the device."""
+    random weights from seed 0 on the device; an enc_dec arch's frames (one
+    (n_frames, d_model) bf16 draw per slot) follow from the same seed."""
     from repro_torch import marvel
     from repro_torch.configs import RunConfig, get_arch, smoke_variant
     from repro_torch.models import transformer as T
@@ -226,9 +245,14 @@ def serve_wave_loop(args) -> dict:
     dev = marvel.resolve_device(args.device)
     run = RunConfig(seq_len=128, global_batch=args.slots, mode="decode",
                     attn_chunk=32, ssm_chunk=32, wkv_chunk=16)
-    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(gen, cfg)
+    frames = None
+    if cfg.family == "enc_dec":
+        frames = torch.randn((args.slots, cfg.n_frames, cfg.d_model),
+                             generator=gen, device=dev).to(torch.bfloat16)
     engine = ServeEngine(params, cfg, run, batch_slots=args.slots,
-                         max_len=128)
+                         max_len=128, frames=frames)
     t0 = time.time()
     for uid, prompt in enumerate(lm_prompts(cfg.vocab, args.requests)):
         engine.submit(Request(uid=uid, prompt=prompt,
@@ -250,9 +274,10 @@ def main(argv=None):
                            "resnet50, mobilenetv2, densenet121)")
     what.add_argument("--arch",
                       help="LM to serve (qwen3-8b, granite-3-2b, "
-                           "starcoder2-3b, hymba-1.5b, rwkv6-1.6b): the "
-                           "legacy wave loop, or the continuous-batching "
-                           "tier with --lm")
+                           "starcoder2-3b, hymba-1.5b, rwkv6-1.6b, "
+                           "whisper-tiny): the legacy wave loop, or the "
+                           "continuous-batching tier with --lm (not "
+                           "whisper-tiny)")
     ap.add_argument("--lm", action="store_true",
                     help="serve --arch through the continuous-batching tier")
     ap.add_argument("--smoke", action="store_true",

@@ -1,7 +1,8 @@
 """Model building blocks, the counterparts of the reference's
 ``models/layers.py``: the activation table and init distributions the CNNs
-use, and the transformer layers of the dense LM family (norms, GEMM sites,
-embeddings, RoPE, attention with its int8 KV cache, MLP).
+use, and the transformer layers of the LM families (norms, GEMM sites,
+embeddings, RoPE and sinusoidal positions, attention with its int8 KV cache,
+the encoder-decoder's cross-attention, MLP).
 
 Every fusable compute pattern goes through :func:`repro_torch.core.
 dispatch.call` under the reference's pattern name and argument order, so
@@ -149,6 +150,23 @@ def rope_freqs(d_head, theta, device=None):
     exps = torch.arange(0, d_head, 2, dtype=torch.float32,
                         device=device) / d_head
     return 1.0 / (theta ** exps)
+
+
+def sinusoidal_positions(seq, d_model, dtype=torch.float32, device=None):
+    """The (seq, d_model) sinusoidal table in the reference's op order (sin
+    of the f32 angle ``pos * div`` in the even columns, cos in the odd),
+    then cast to ``dtype``.  ``exp``, ``sin`` and ``cos`` are evaluated in
+    f64 and rounded once to f32, as XLA folds the reference's table, which
+    depends on no input, at compile time; PyTorch's f32 versions move the
+    angles up to 1500 rad by up to 8e-6."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    expo = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+    div = torch.exp((expo * (-math.log(10000.0) / d_model)).double()).float()
+    angle = (pos * div).double()
+    pe = torch.zeros((seq, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle).float()
+    pe[:, 1::2] = torch.cos(angle).float()
+    return pe.to(dtype)
 
 
 def apply_rope(x, positions, theta=10000.0):
@@ -361,6 +379,29 @@ def attention(p, x, cfg, *, positions=None, causal=True, window=None,
                          chunk=chunk, window=window)
     out = out.reshape(b, s, h * dh)
     return matmul_epilogue(out, p["wo"], p.get("bo"))
+
+
+def cross_attention(p, x, enc_kv, cfg, attn_impl="chunked", chunk=512):
+    """x: the decoder stream (B, S, d); enc_kv: (k, v) precomputed (B, Se,
+    K, dh) by :func:`encoder_kv`; every query sees every frame."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = matmul_epilogue(x, p["wq"], p.get("bq")).reshape(b, s, h, dh)
+    k, v = enc_kv
+    qg = q.reshape(b, s, kv, h // kv, dh)
+    out = attention_core(qg, k, v, causal=False, impl=attn_impl, chunk=chunk)
+    out = out.reshape(b, s, h * dh)
+    return matmul_epilogue(out, p["wo"], p.get("bo"))
+
+
+def encoder_kv(p, enc_out, cfg):
+    """The cross-attention's K and V of the encoder output (B, Se, d), each
+    (B, Se, K, dh)."""
+    b, se, _ = enc_out.shape
+    kv, dh = cfg.n_kv_heads, cfg.d_head
+    k = matmul_epilogue(enc_out, p["wk"], p.get("bk")).reshape(b, se, kv, dh)
+    v = matmul_epilogue(enc_out, p["wv"], p.get("bv")).reshape(b, se, kv, dh)
+    return k, v
 
 
 def attention_decode(p, x, cache, cache_index, cfg, *, window=None):

@@ -15,7 +15,8 @@ refill via :func:`~repro_torch.runtime.batching.refill_slots`, and a
 ``metrics()`` dict in the shape the CNN tier emits.  A refilled lane starts
 from a fresh slot: its position index and its recurrent cache rows (rwkv's,
 hymba's SSM state) are zeroed (:func:`repro_torch.runtime.kvcache.
-_fresh_slot`), where the reference resets the index alone.  The caller
+_fresh_slot`), where the reference resets the index alone; an enc_dec
+lane's ``cross_kv`` (its frames) stays.  The caller
 drives :meth:`ServeEngine.step`;
 the continuous-batching tier with futures is
 :class:`~repro_torch.runtime.lm_server.AsyncLmEngine`.
@@ -48,11 +49,12 @@ class Request:
 class ServeEngine:
     """The steps run where ``params`` live, through the plain versions (no
     extension table is bound), as the reference's loop runs its baselines.
-    The reference's ``frames=`` feeds the enc_dec family, which the port
-    does not serve yet."""
+    ``frames`` (batch_slots, F, d) feed the enc_dec family: lane i decodes
+    against ``frames[i]``, whose cross-attention K/V the state builds once
+    and a refilled lane keeps."""
 
     def __init__(self, params, cfg: ArchConfig, run: RunConfig, *,
-                 batch_slots: int = 4, max_len: int = 256,
+                 batch_slots: int = 4, max_len: int = 256, frames=None,
                  max_pending: int | None = None):
         self.params = params
         self.cfg = cfg
@@ -62,7 +64,7 @@ class ServeEngine:
         self.max_len = max_len
         self.device = params["embed"]["table"].device
         self.state = T.init_decode_state(params, cfg, run, batch=batch_slots,
-                                         max_len=max_len)
+                                         max_len=max_len, frames=frames)
         self._step = lambda p, s, t: T.decode_step(p, s, t, cfg, run)
         self._next_tok = np.zeros((batch_slots, 1), np.int32)
         self._prompt_pos = np.zeros(batch_slots, np.int32)

@@ -40,10 +40,13 @@ address, which takes the scalar form; the global average at H*W = 1, 4
 (vector form) and 143 (rows form).
 
 The LM kernels: ``residual_rmsnorm`` on the grid's rows (33 x 96, 130 x
-257), qwen3-8b's (8 and 2048 rows of 4096) and hymba-1.5b's (8 and 2048
-rows of 1600), ``flash_attention`` on the
-grid's grouped and ragged cases and qwen3-8b's heads, and the GEMM on bf16
-operands.  In f32 the tolerance is ``tol_from_acc(float32, K)`` (sum order
+257), qwen3-8b's (8 and 2048 rows of 4096), hymba-1.5b's (8 and 2048
+rows of 1600) and whisper-tiny's (8, 1792 and 6000 rows of 384),
+``flash_attention`` on the grid's grouped and ragged cases, qwen3-8b's heads
+and non-causal cross-attention with Sq != Skv in both forms (7 and 40
+queries over 16 keys in f32, 448 over 1536 at d = 64 in bf16), and the GEMM
+on bf16 operands, whisper-tiny's shapes with bias, gelu and residual among
+them.  In f32 the tolerance is ``tol_from_acc(float32, K)`` (sum order
 over the reduction K); in bf16 the outputs may differ by one bf16 rounding
 (2**-7 relative), and flash attention's probabilities too (2**-7 of
 ``mean|v|`` absolute), where the two sum orders straddle a rounding edge.
@@ -629,6 +632,11 @@ RMSNORM_CASES = [
     # hymba-1.5b: a prefill's 2048 rows and a decode step's 8 of 1600
     dict(rows=2048, d=1600, dtype="bfloat16"),
     dict(rows=8, d=1600, dtype="bfloat16"),
+    # whisper-tiny: the encoder's 4 x 1500 frames, the decoder's 4 x 448
+    # tokens and a decode step's 8 rows of 384
+    dict(rows=6000, d=384, dtype="bfloat16"),
+    dict(rows=1792, d=384, dtype="bfloat16"),
+    dict(rows=8, d=384, dtype="bfloat16"),
 ]
 
 
@@ -665,6 +673,13 @@ FLASH_CASES = [
     dict(sq=100, causal=False),
     dict(sq=512, kheads=8, g=4, dh=128, dtype="bfloat16"),
     dict(b=2, sq=77, kheads=2, g=2, dh=64, dtype="bfloat16"),
+    # cross-attention, non-causal with Sq != Skv: whisper-tiny's smoke
+    # variant (queries over 16 frames, the fma form) and 448 decoder queries
+    # over 1536 keys at d = 64 (the wgmma form)
+    dict(sq=7, skv=16, causal=False, form="fma"),
+    dict(sq=40, skv=16, dh=32, causal=False, form="fma"),
+    dict(b=2, sq=448, skv=1536, kheads=6, g=1, dh=64, causal=False,
+         dtype="bfloat16", form="wgmma"),
 ]
 
 
@@ -681,7 +696,7 @@ def test_flash_attention_kernel_matches_plain(card, case):
     q = torch.from_numpy(r.standard_normal(
         (c["b"], c["sq"], c["kheads"], c["g"], c["dh"]), np.float32))
     k, v = (torch.from_numpy(r.standard_normal(
-        (c["b"], c["sq"], c["kheads"], c["dh"]), np.float32))
+        (c["b"], c.get("skv", c["sq"]), c["kheads"], c["dh"]), np.float32))
         for _ in range(2))
     q, k, v = (t.to(card, dt) for t in (q, k, v))
     kw = {}
@@ -689,9 +704,13 @@ def test_flash_attention_kernel_matches_plain(card, case):
         (k, ks), (v, vs) = quantize_kv_int8(k), quantize_kv_int8(v)
         kw = dict(k_scale=ks, v_scale=vs)
     before = fa.flash_attention.launches
+    forms = dict(fa.flash_attention.launches_by_form)
     got = ops._cuda_flash_attention(q, k, v, causal=c["causal"], **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
+    if "form" in c:
+        assert fa.flash_attention.launches_by_form[c["form"]] == forms[
+            c["form"]] + 1
     if c["int8_kv"]:
         k = (k.float() * kw["k_scale"][..., None]).to(dt)
         v = (v.float() * kw["v_scale"][..., None]).to(dt)
@@ -877,6 +896,47 @@ def test_matmul_epilogue_hymba_shapes(card, mkn, with_res):
     tol = _gemm_case_tol(x2, w, want, es, eb, r2)
     assert (err <= tol).all(), (err / tol).max().item()
     assert (err[:, -(n % 128 or 128):] <= tol[:, -(n % 128 or 128):]).all()
+
+
+# whisper-tiny's GEMMs (M, K, N, act, residual): the encoder's 4 x 1500
+# frames and the decoder's 4 x 448 tokens (the q/k/v/o and encoder_kv
+# projections, the MLP's up projection with gelu, its down projection with
+# the residual) and a decode step's 8 rows; every one has a bias
+WHISPER_GEMM_CASES = [
+    (6000, 384, 384, "none", False), (6000, 384, 1536, "gelu", False),
+    (6000, 1536, 384, "none", True), (1792, 384, 384, "none", False),
+    (1792, 384, 1536, "gelu", False), (1792, 1536, 384, "none", True),
+    (8, 384, 384, "none", False), (8, 384, 1536, "gelu", False),
+    (8, 1536, 384, "none", True)]
+
+
+@pytest.mark.parametrize("case", WHISPER_GEMM_CASES, ids=str)
+def test_matmul_epilogue_whisper_shapes(card, case):
+    """bf16 GEMMs at whisper-tiny's shapes with its bias, gelu (tanh) and
+    residual through the form each takes (decode at M = 8, wgmma above):
+    within :func:`_gemm_case_tol` of the plain f32 version."""
+    from repro_torch.kernels import matmul_epilogue as me
+
+    m, k, n, act, with_res = case
+    r = _rng(m + k + n)
+    bf = torch.bfloat16
+    x = torch.from_numpy(r.standard_normal((m, k), np.float32)).to(card, bf)
+    w = torch.from_numpy(r.standard_normal((k, n), np.float32)
+                         / np.sqrt(k)).to(card, bf)
+    b = torch.from_numpy(r.standard_normal(n, np.float32) * 0.1).to(card, bf)
+    res = (torch.from_numpy(r.standard_normal((m, n), np.float32)).to(
+        card, bf) if with_res else None)
+    form = "decode" if m <= me.DECODE_M_MAX else "wgmma"
+    before = dict(me.matmul_epilogue.launches_by_form)
+    got = me.matmul_epilogue(x, w, b, act=act, residual=res)
+    torch.cuda.synchronize()
+    assert me.matmul_epilogue.launches_by_form[form] == before[form] + 1
+    assert got.dtype == bf and got.shape == (m, n)
+    x2, es, eb, r2 = me._prepare(x, w, b, None, None, res)
+    want = me._plain(x2, w, es, eb, r2, act)
+    err = (got.float() - want).abs()
+    tol = _gemm_case_tol(x2, w, want, es, eb, r2)
+    assert (err <= tol).all(), (err / tol).max().item()
 
 
 def test_matmul_epilogue_routes_what_tensor_cores_cannot_take(card):

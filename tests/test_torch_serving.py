@@ -119,17 +119,19 @@ def test_lm_launcher_serves_the_smoke_variant_on_cpu(capsys, monkeypatch):
 
 
 def test_arch_registry_serves_the_dense_family_only():
-    """The served archs (the dense family, hymba and rwkv6); an arch of a
-    family the port does not serve yet is refused with its family named."""
+    """The served archs (the dense family, whisper-tiny, hymba and rwkv6);
+    an arch of a family the port does not serve yet is refused with its
+    family named."""
     from repro_torch.configs import get_arch, list_archs
 
-    assert list_archs() == ["granite-3-2b", "qwen3-8b", "starcoder2-3b",
-                            "hymba-1.5b", "rwkv6-1.6b"]
+    assert list_archs() == ["whisper-tiny", "granite-3-2b", "qwen3-8b",
+                            "starcoder2-3b", "hymba-1.5b", "rwkv6-1.6b"]
     assert get_arch("qwen3-8b").family == "dense"
     assert get_arch("rwkv6-1.6b").family == "rwkv"
     assert get_arch("hymba-1.5b").family == "hybrid"
-    with pytest.raises(NotImplementedError, match="enc_dec"):
-        get_arch("whisper-tiny")
+    assert get_arch("whisper-tiny").family == "enc_dec"
+    with pytest.raises(NotImplementedError, match="vlm"):
+        get_arch("internvl2-26b")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 

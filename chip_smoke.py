@@ -96,9 +96,11 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
 6b. one recorded prefill forward at B = 4, S = 512: exactly 36
    flash_attention, 36 residual_rmsnorm and 216 matmul_epilogue launches,
    the GEMMs and attention all through their tensor-core ("wgmma") forms
-   (``FORWARD_FORMS``), every one held, each shape timed beside its bound,
-   its library call (``F.scaled_dot_product_attention``,
-   ``torch.matmul``; none for the norm) and the same launch in the
+   (``FORWARD_FORMS``) and the norm through its rows form, every one held,
+   each shape timed beside its bound, its library call
+   (``F.scaled_dot_product_attention``, ``torch.matmul``; none for the
+   norm, timed beside ``torch.add`` then ``F.rms_norm``) and the same
+   launch in the
    CUDA-core ("fma") form, and the forward's wall time beside its kernels'
    device time; two planted tensor-core faults read against the unchanged
    holds on every launch (``lm_fault_holds``): a GEMM whose f32
@@ -675,13 +677,15 @@ def rmsnorm_case(args, timed=True):
     (one f32 add, rounded once), the normed rows within the bound of a
     mean of D squares summed in another order (relative D/2 * eps, through
     the square root), a few roundings, and one rounding to the output
-    type."""
+    type.  Timed beside ``torch.add`` then ``F.rms_norm`` on the sum (the
+    unfused library pair, a yardstick the port never calls)."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels import residual_rmsnorm as rr
     from repro_torch.kernels.ref import residual_rmsnorm_plain
 
     res2, x2, scale, eps = args
-    got_res, got = rr._launch(res2, x2, scale, eps)
+    got_res, got, form = rr._launch(res2, x2, scale, eps)
     want_res, want = residual_rmsnorm_plain(res2, x2, scale, eps)
     assert torch.equal(got_res, want_res), "residual_rmsnorm: new residual"
     r, d = res2.shape
@@ -695,14 +699,18 @@ def rmsnorm_case(args, timed=True):
     size = res2.element_size()
     nbytes = 4 * r * d * size + d * scale.element_size()
     b = bound(nbytes, {"f32": 5 * r * d})
-    label = f"residual_rmsnorm {res2.dtype} rows={r} D={d}"
+    label = (f"residual_rmsnorm {res2.dtype} rows={r} D={d} scale "
+             f"{scale.dtype}, {form} form")
     tol_s = (f"new residual equal; normed |err| <= ((D/2+6) eps + 2u) |y|, "
              f"worst {ratio:.3f} of it")
     if not timed:
         return untimed(label, err, tol_s, b)
     ms = time_ms(lambda: rr._launch(res2, x2, scale, eps))
     plain = time_ms(lambda: residual_rmsnorm_plain(res2, x2, scale, eps))
-    return label, err, tol_s, ms, plain, None, b
+    w = scale.to(res2.dtype)
+    pair = time_ms(lambda: F.rms_norm(torch.add(res2, x2), (d,), w, eps))
+    return (f"{label} (torch.add + F.rms_norm {pair:.4f} ms)", err, tol_s,
+            ms, plain, None, b, {"pair_ms": pair})
 
 
 def flash_tol(q, k, v, causal, want):
@@ -1089,10 +1097,12 @@ PER_FORWARD = {
 # the form each launch of a kernel with forms takes, per forward: the LMs'
 # bf16 GEMMs and attention on tensor cores (wgmma; the GEMM's decode form
 # at 8 slots), every f32 launch of the CNNs on CUDA cores ("fma"), every
-# pool launch in its vector form (16-byte channel groups), where a forward
+# pool launch in its vector form (16-byte channel groups) and every norm
+# launch in its rows form (the row held in registers), where a forward
 # names none (DEFAULT_FORMS)
 DEFAULT_FORMS = {"matmul_epilogue": "fma", "flash_attention": "fma",
-                 "windowed_pool": "vector", "global_avgpool": "vector"}
+                 "windowed_pool": "vector", "global_avgpool": "vector",
+                 "residual_rmsnorm": "rows"}
 FORWARD_FORMS = {
     "qwen3-8b v4 prefill": {"matmul_epilogue": "wgmma",
                             "flash_attention": "wgmma"},
@@ -3791,7 +3801,8 @@ def main() -> int:
                 "bound_ms": agg["bound_ms"],
                 "bound_bytes_ms": agg["t_bytes"],
                 "bound_ops_ms": agg["t_ops"],
-                "library_ms": agg["library_ms"]}
+                "library_ms": agg["library_ms"],
+                **({"pair_ms": agg["pair_ms"]} if "pair_ms" in agg else {})}
 
     # the tensor-core forms, on the forwards that run them
     tensor_core = {
@@ -3825,15 +3836,16 @@ def main() -> int:
     # are under tensor_core)
     enc_dec = {"residual_rmsnorm": [
         form_entry(f"{WHISPER_ARCH} v4 prefill B=%d F=%d S=%d"
-                   % WHISPER_PREFILL, wh_prefill["residual_rmsnorm"], None),
+                   % WHISPER_PREFILL, wh_prefill["residual_rmsnorm"],
+                   "rows"),
         form_entry(f"{WHISPER_ARCH} v4 decode step, {LM_SLOTS} slots",
-                   wh_dec["residual_rmsnorm"], None)]}
+                   wh_dec["residual_rmsnorm"], "rows")]}
     # the norm on hymba-1.5b's forwards (its GEMMs are under tensor_core)
     hybrid = {"residual_rmsnorm": [
         form_entry(f"{HYMBA_ARCH} v4 prefill", hy_prefill["residual_rmsnorm"],
-                   None),
+                   "rows"),
         form_entry(f"{HYMBA_ARCH} v4 decode step, {LM_SLOTS} slots",
-                   hy_dec["residual_rmsnorm"], None)]}
+                   hy_dec["residual_rmsnorm"], "rows")]}
     # the f32 GEMM (fma form), the int8 conv (on int8 tensor cores) and the
     # pools (vector form) on each CNN forward that times them
     cnn_forwards = {
@@ -3868,6 +3880,7 @@ def main() -> int:
             else "operations",
             "bound_bytes_ms": agg["t_bytes"], "bound_ops_ms": agg["t_ops"],
             "library_ms": agg["library_ms"],
+            **({"pair_ms": agg["pair_ms"]} if "pair_ms" in agg else {}),
             "forward": f"{forward} {batches.get(forward, f'batch {BATCH}')}",
             "path": paths.get(name, "resnet50 v4 serve"),
             "tensor_core_forms": tensor_core.get(name, []),

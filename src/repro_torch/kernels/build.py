@@ -39,7 +39,7 @@ SIGNATURES = {
     "marvel_global_avgpool": (_P, _P) + (_I,) * 8 + (_P,),
     "marvel_depthwise_conv": (_P,) * 5 + (_I,) * 14 + (_P,),
     "marvel_sep_block": (_P,) * 10 + (_I,) * 19 + (_P,),
-    "marvel_residual_rmsnorm": (_P,) * 5 + (_I, _I, _F, _I, _P),
+    "marvel_residual_rmsnorm": (_P,) * 5 + (_I, _I, _F) + (_I,) * 8 + (_P,),
     "marvel_flash_attention": (_P,) * 4 + (_I,) * 6 + (_F, _I, _I, _I, _P),
     "marvel_wkv_chunk": (_P,) * 10 + (_I,) * 5 + (_P,),
     "marvel_wkv_chunk_smem": (_I, _I),

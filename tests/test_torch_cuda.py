@@ -40,8 +40,13 @@ address, which takes the scalar form; the global average at H*W = 1, 4
 (vector form) and 143 (rows form).
 
 The LM kernels: ``residual_rmsnorm`` on the grid's rows (33 x 96, 130 x
-257), qwen3-8b's (8 and 2048 rows of 4096), hymba-1.5b's (8 and 2048
-rows of 1600) and whisper-tiny's (8, 1792 and 6000 rows of 384),
+257), qwen3-8b's (8 and 2048 rows of 4096, the scale in bf16 or f32),
+hymba-1.5b's (8 and 2048 rows of 1600), whisper-tiny's (8, 1792 and 6000
+rows of 384), the next slices' 6144 (8 and 2048 rows), 8200 (beyond the
+rows form's registers) and rows one element past an aligned address, each
+launch in the form ``norm_plan`` gives (read from ``launches_by_form``),
+and one wrapper call traced with ``torch.profiler``: one device kernel,
+no cast of the scale before it;
 ``flash_attention`` on the grid's grouped and ragged cases, qwen3-8b's heads
 and non-causal cross-attention with Sq != Skv in both forms (7 and 40
 queries over 16 keys in f32, 448 over 1536 at d = 64 in bf16), and the GEMM
@@ -637,6 +642,14 @@ RMSNORM_CASES = [
     dict(rows=6000, d=384, dtype="bfloat16"),
     dict(rows=1792, d=384, dtype="bfloat16"),
     dict(rows=8, d=384, dtype="bfloat16"),
+    # bf16 rows with an f32 scale; the next slices' width 6144; a width
+    # beyond the rows form's registers and a view off 16-byte alignment
+    # (both the scalar form)
+    dict(rows=2048, d=4096, dtype="bfloat16", scale="float32"),
+    dict(rows=8, d=6144, dtype="bfloat16"),
+    dict(rows=2048, d=6144, dtype="bfloat16"),
+    dict(rows=8, d=8200, dtype="bfloat16"),
+    dict(rows=130, d=4096, dtype="bfloat16", offset=1),
 ]
 
 
@@ -645,23 +658,52 @@ def test_residual_rmsnorm_kernel_matches_plain(card, case):
     from repro_torch.kernels import residual_rmsnorm as rr
     from repro_torch.kernels.ref import residual_rmsnorm_plain
 
-    c = dict(seed=0, dtype="float32") | case
+    c = dict(seed=0, dtype="float32", offset=0) | case
     r = _rng(c["seed"])
     dt = getattr(torch, c["dtype"])
-    res, x = (torch.from_numpy(r.standard_normal((c["rows"], c["d"]),
-                                                  np.float32)).to(card, dt)
-              for _ in range(2))
-    scale = torch.from_numpy(0.5 + r.random(c["d"], np.float32)).to(card, dt)
+    sdt = getattr(torch, c.get("scale", c["dtype"]))
+    n, off = c["rows"] * c["d"], c["offset"]
+    res, x = (torch.from_numpy(r.standard_normal(n + off, np.float32)).to(
+        card, dt)[off:].view(c["rows"], c["d"]) for _ in range(2))
+    scale = torch.from_numpy(0.5 + r.random(c["d"], np.float32)).to(card, sdt)
+    form = rr.norm_plan(c["rows"], c["d"], dt, sdt, aligned=off == 0).form
+    assert form == ("scalar" if off or c["d"] in (257, 8200) else "rows")
     before = rr.residual_rmsnorm.launches
+    forms = dict(rr.residual_rmsnorm.launches_by_form)
     got_res, got = rr.residual_rmsnorm(res, x, scale)
     torch.cuda.synchronize()
     assert rr.residual_rmsnorm.launches == before + 1
+    forms[form] += 1
+    assert rr.residual_rmsnorm.launches_by_form == forms
     want_res, want = residual_rmsnorm_plain(res, x, scale)
     assert got.dtype == got_res.dtype == dt
     torch.testing.assert_close(got_res, want_res, rtol=0, atol=0)
     tol = (_tol32(c["d"]) if dt == torch.float32
            else dict(rtol=2**-7, atol=1e-6))
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("scale_dtype", ["bfloat16", "float32"])
+def test_residual_rmsnorm_call_is_one_device_kernel(card, scale_dtype):
+    """One wrapper call on bf16 rows is one device kernel whatever the
+    scale's type: no cast or copy of the scale runs before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import residual_rmsnorm as rr
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    res, x = (torch.randn((2048, 4096), generator=g).to(card, torch.bfloat16)
+              for _ in range(2))
+    scale = torch.rand(4096, generator=g).to(card, getattr(torch,
+                                                           scale_dtype))
+    rr.residual_rmsnorm(res, x, scale)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rr.residual_rmsnorm(res, x, scale)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "residual_rmsnorm" in kernels[0], kernels
 
 
 FLASH_CASES = [

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The port's quickest proof on one CUDA card: build the kernels, hold each
 against its plain PyTorch version, then serve ResNet50, MobileNetV2,
-qwen3-8b, rwkv6-1.6b and hymba-1.5b at v4, whisper-tiny through the wave
-loop, and ResNet50 and qwen3-8b supervised, with workers killed mid-wave.
+qwen3-8b, rwkv6-1.6b, hymba-1.5b and granite-34b (its depth cut) at v4,
+whisper-tiny and internvl2-26b through the wave loop, and ResNet50 and
+qwen3-8b supervised, with workers killed mid-wave.
 
     python3 chip_smoke.py
 
@@ -228,6 +229,50 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    B = 2, S = 32: 32 GEMM, 4 norm and 6 flash launches (fma form at d =
    32), the encoder's and the cross-attention's non-causal, the latter
    with 32 queries over 16 keys, every one held;
+13a. internvl2-26b at full width and depth in bf16 (48 layers, d_model
+   6144, 48 heads of 128 over 8 KV heads, d_ff 16384, vocab 92553 padded
+   to 92672; 19.3 B parameters drawn on the card, seed 0), ``forward_lm``
+   with patches compiled at v4 with tokens and patches as example args:
+   class ``dense_lm``, the three LM kernels bound to ``cuda``, the
+   ``mac_matmul`` site (the patch projection and the MLP's up projection)
+   on its plain version, no kernel in either package;
+13b. one recorded prefill at B = 4, 256 patches + 256 tokens (S = 512):
+   288 GEMM (wgmma), 48 norm (rows form, 6144 wide) and 48 flash launches
+   (wgmma, d = 128, 6 query heads a KV head, causal over the prefix and
+   the text), the report's site counts times the layers, every one held,
+   each shape timed beside its bound, its library call and the fma form;
+   the forward's wall and device busy time against its kernels' time;
+13c. its v4 logits against the same model at v0 on the card (the two
+   programs share the params) within ``VLM_V0_TIMES_NOISE`` times the
+   response to one-ulp noise on every site's input; a GEMM kernel that
+   drops its residual (planted) must exceed it;
+13d. the decode state for 8 slots and one recorded decode step (288 GEMM
+   in the decode form, 48 norm launches), held and timed, its wall and
+   device busy time against its kernels' time;
+13e. the legacy wave loop (the plain versions, from tokens alone as the
+   reference's loop serves a vlm arch) serves 8 requests: 0 launches,
+   every stream equal to a static greedy decode, tokens/s printed; once
+   the phase's model is freed, ``python -m repro_torch.launch.serve --arch
+   internvl2-26b`` serves on the card, and ``--lm`` is refused;
+13f. the depth cut to 2 layers at full width: the card's logits at B = 1,
+   64 patches + 64 tokens against the CPU program within ``E2E_LIMIT``; the
+   flash kernel without its causal mask (planted) must exceed it;
+14a. granite-34b at full width (d_model 6144, 48 heads of 128 over one KV
+   head, d_ff 24576, vocab 49152) with its depth cut to ``MQA_LAYERS``
+   (all 88 layers, 47 B parameters, do not fit the card), compiled at v4:
+   class ``dense_lm``;
+14b. one recorded prefill at B = 4, S = 512: flash with 48 query heads over
+   one KV head, GEMMs with N = 128 (wk, wv) and K = 24576 (the down
+   projection), every launch held and timed, the wall against the
+   kernels' time;
+14c. v4 against v0 on the card within ``MQA_V0_TIMES_NOISE`` times the
+   noise response, the planted GEMM without its residual above it;
+14d. 8 requests through ``prog.serve(mode="lm", kv_quant="int8", slots=8,
+   max_len=64)`` (the int8 KV's scale planes over one head): 0 compile
+   misses after warmup, every stream equal to a static decode in its lane,
+   tokens/s and TTFT; one recorded decode step held and timed.
+   Phases 13 and 14 print the device's peak allocation after each step
+   and free their models before the next;
 10a. supervised serving, in process: a ``Supervisor`` over 2 workers of the
    ResNet50 v4 program (``max_batch=8``).  A recorded 32-request wave
    (``BatchRecorder`` at the program boundary: each batch's counts from 0,
@@ -261,8 +306,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
    for (``rewrite_fallbacks``); the
    ``{"kernels": [...]}`` line (each kernel on the forward its entry
    names; the GEMM's and flash attention's tensor-core forms on the LM
-   forwards under ``tensor_core_forms``) and the ``{"ok": true, ...}``
-   last line.
+   forwards under ``tensor_core_forms``, internvl2-26b's and granite-34b's
+   among them; the norm on those two under ``vlm_and_mqa_forwards``) and
+   the ``{"ok": true, ...}`` last line.
 
 Per-launch tolerances.  The GEMM-shaped holds (``matmul_epilogue``, the
 separable block's pointwise contraction, both products of flash attention)
@@ -316,7 +362,8 @@ E2E_LIMIT = {"resnet50 v4": 2e-2, "mobilenetv2 v4": 1e-1,
              "mobilenetv2 v2": 2e-1, "mobilenetv1 v4": 2e-2,
              "densenet121 v4": 1e-2, "vgg16 v4": 6e-2, "lenet5 v4": 5e-7,
              "qwen3-8b 2-layer v4": 5e-2,
-             "rwkv6-1.6b 2-layer v4": 4e-2, "whisper-tiny v4": 5e-2}
+             "rwkv6-1.6b 2-layer v4": 4e-2, "whisper-tiny v4": 5e-2,
+             "internvl2-26b 2-layer v4": 5e-2}
 V0_LIMIT = 1e-4  # the v0 forward on the card vs the CPU
 
 
@@ -1044,6 +1091,10 @@ KERNELS = {
                         "mac_matmul_int8 cases"),
 }
 
+# granite-34b's depth on the card: its 88 layers come to 47 B parameters,
+# 94 GB in bf16, over the card's 80 GB; this cut's phase peak stays under 70
+MQA_ARCH, MQA_LAYERS = "granite-34b", 48
+
 # launches per batch-8 forward, as the reference dispatches them
 PER_FORWARD = {
     "resnet50 v4": {"fused_conv": 20, "matmul_epilogue": 34,
@@ -1092,6 +1143,21 @@ PER_FORWARD = {
     # cross-attention's flash launches too (16 keys: one whole tile)
     "whisper-tiny smoke v4": {"flash_attention": 6, "residual_rmsnorm": 4,
                               "matmul_epilogue": 32},
+    # internvl2-26b, 48 dense layers over its patch prefix: qwen3-8b's 6
+    # GEMMs, 1 fused norm and 1 flash attention a layer; the patch
+    # projection and the MLP's up projection are mac_matmul sites (no
+    # kernel in either package)
+    "internvl2-26b v4 prefill": {"flash_attention": 48,
+                                 "residual_rmsnorm": 48,
+                                 "matmul_epilogue": 288},
+    "internvl2-26b v4 decode": {"residual_rmsnorm": 48,
+                                "matmul_epilogue": 288},
+    # granite-34b at its cut depth: the same per layer, over one KV head
+    f"{MQA_ARCH} v4 prefill": {"flash_attention": MQA_LAYERS,
+                               "residual_rmsnorm": MQA_LAYERS,
+                               "matmul_epilogue": 6 * MQA_LAYERS},
+    f"{MQA_ARCH} v4 decode": {"residual_rmsnorm": MQA_LAYERS,
+                              "matmul_epilogue": 6 * MQA_LAYERS},
 }
 
 # the form each launch of a kernel with forms takes, per forward: the LMs'
@@ -1116,6 +1182,12 @@ FORWARD_FORMS = {
     "whisper-tiny v4 decode": {"matmul_epilogue": "decode"},
     # heads of 32: flash in the fma form
     "whisper-tiny smoke v4": {"matmul_epilogue": "wgmma"},
+    "internvl2-26b v4 prefill": {"matmul_epilogue": "wgmma",
+                                 "flash_attention": "wgmma"},
+    "internvl2-26b v4 decode": {"matmul_epilogue": "decode"},
+    f"{MQA_ARCH} v4 prefill": {"matmul_epilogue": "wgmma",
+                               "flash_attention": "wgmma"},
+    f"{MQA_ARCH} v4 decode": {"matmul_epilogue": "decode"},
 }
 
 
@@ -1299,8 +1371,11 @@ def extra_cases(dev):
 
 
 # every program this run compiles, so none may have counted a bucket whose
-# rewrite failed (``rewrite_fallbacks``)
+# rewrite failed (``rewrite_fallbacks``); a phase done with its programs
+# retires them to ``RETIRED`` (their summary, fallbacks and whether they
+# were rewritten at compile), so its models are freed
 PROGRAMS: list = []
+RETIRED: list[tuple[str, int, bool]] = []
 
 
 def track_programs() -> None:
@@ -1315,6 +1390,27 @@ def track_programs() -> None:
         return prog
 
     marvel.compile = compile
+
+
+def free_card() -> None:
+    """Return what the dropped models held to the card: collect any
+    reference cycle still holding one (an engine's, a traceback's), then
+    release the allocator's cached blocks."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def retire(start: int) -> None:
+    """Record the programs compiled since ``PROGRAMS[start]`` in
+    ``RETIRED`` and drop them from ``PROGRAMS``: once the phase that made
+    them lets go of them, their parameters leave the card."""
+    RETIRED.extend((p.summary(), p.rewrite_fallbacks, p.rewrite_baked)
+                   for p in PROGRAMS[start:])
+    del PROGRAMS[start:]
 
 
 def rel_l2(got, want) -> float:
@@ -1380,7 +1476,7 @@ def site_noise_response(prog, batch, got, seeds: int = 3) -> float:
     import torch
     from repro_torch.core import dispatch
 
-    g = torch.Generator(device="cpu").manual_seed(3)
+    gens: dict = {}  # the noise is drawn where the site's input lies
     orig = dispatch.call
 
     def noisy(pattern, baseline, *args, **kwargs):
@@ -1388,7 +1484,11 @@ def site_noise_response(prog, batch, got, seeds: int = 3) -> float:
         i = next(j for j, a in enumerate(args)
                  if isinstance(a, torch.Tensor))
         x = args[i]
-        n = torch.randn(x.shape, generator=g).to(x.device)
+        g = gens.get(x.device)
+        if g is None:
+            g = gens[x.device] = torch.Generator(
+                device=x.device).manual_seed(3)
+        n = torch.randn(x.shape, generator=g, device=x.device)
         if x.dtype == torch.bfloat16:
             eps = torch.finfo(x.dtype).eps
             x = (x.float() * (1 + eps * n)).to(x.dtype)
@@ -1829,19 +1929,21 @@ def lm_program(params, cfg, run, tokens, dev):
                           tokens, params=params, level="v4", device=dev)
 
 
-def lm_noise_and_faults(prog, tokens, want, limit):
+def lm_noise_and_faults(prog, inputs, want, limit):
     """The 2-layer program's logits against the CPU's, beside its response
     to one-ulp noise on every site's input; the planted fault (the flash
-    kernel with its causal mask dropped) must exceed the limit."""
+    kernel with its causal mask dropped) must exceed the limit.
+    ``inputs``: the tokens, or a tuple of the program's inputs."""
     from repro_torch.kernels import flash_attention as fa
 
-    got = prog(tokens).cpu()
+    args = inputs if isinstance(inputs, tuple) else (inputs,)
+    got = prog(*args).cpu()
     rel = rel_l2(got, want)
-    sites = site_noise_response(prog, tokens, got)
+    sites = site_noise_response(prog, inputs, got)
     real = fa._launch
     fa._launch = lambda q, k, v, causal: real(q, k, v, False)
     try:
-        bad = rel_l2(prog(tokens).cpu(), want)
+        bad = rel_l2(prog(*args).cpu(), want)
     finally:
         fa._launch = real
     return got, rel, sites, bad
@@ -2051,6 +2153,7 @@ def lm_phases(dev, card):
     from repro_torch.launch.serve import lm_prompts
     from repro_torch.models import transformer as T
 
+    n_progs = len(PROGRAMS)
     # 6a) build on the card and compile at v4
     cfg = get_arch(LM_ARCH)
     run = RunConfig(seq_len=LM_PREFILL[1], global_batch=LM_PREFILL[0],
@@ -2224,6 +2327,7 @@ def lm_phases(dev, card):
         f"without its causal mask' {bad:.3e}")
     assert bad > limit, ("planted no-causal-mask fault passed", bad, limit)
     assert rel <= limit, rel
+    retire(n_progs)
     return prefill, dec, counts, launches
 
 
@@ -2337,6 +2441,7 @@ def rwkv_phases(dev, card):
     from repro_torch.models import transformer as T
     from repro_torch.runtime.kvcache import POSITION_LEAVES
 
+    n_progs = len(PROGRAMS)
     # 8a) build on the card and compile at v4
     cfg = get_arch(RWKV_ARCH)
     run = RunConfig(seq_len=RWKV_PREFILL[1], global_batch=RWKV_PREFILL[0],
@@ -2516,6 +2621,7 @@ def rwkv_phases(dev, card):
     assert no_decay > limit, ("planted no-decay fault passed", no_decay,
                               limit)
     assert rel <= limit, rel
+    retire(n_progs)
     return prefill
 
 
@@ -2604,6 +2710,7 @@ def hymba_phases(dev, card):
     from repro_torch.runtime.kvcache import POSITION_LEAVES
 
     t_phase = time.perf_counter()
+    n_progs = len(PROGRAMS)
     # 11a) build on the card and compile at v4
     cfg = get_arch(HYMBA_ARCH)
     run = RunConfig(seq_len=HYMBA_PREFILL[1], global_batch=HYMBA_PREFILL[0],
@@ -2843,7 +2950,8 @@ def hymba_phases(dev, card):
         f"B=1 S=64: launches {k_n}")
     log(f"{HYMBA_ARCH} phases: {time.perf_counter() - t_phase:.1f} s")
     del params, prog
-    torch.cuda.empty_cache()
+    retire(n_progs)
+    free_card()
     return prefill, dec
 
 
@@ -2915,6 +3023,7 @@ def whisper_phases(dev, card):
     from repro_torch.runtime.server import Request, ServeEngine
 
     t_phase = time.perf_counter()
+    n_progs = len(PROGRAMS)
     # 12a) build on the card and compile at v4; the report against the
     # CPU compile's
     cfg = get_arch(WHISPER_ARCH)
@@ -3168,8 +3277,487 @@ def whisper_phases(dev, card):
             f"{k} {r['max_abs_err']:.3e}" for k, r in smoke.items()))
     log(f"{WHISPER_ARCH} phases: {time.perf_counter() - t_phase:.1f} s")
     del params, prog, cpu_prog, sparams, sprog
-    torch.cuda.empty_cache()
+    retire(n_progs)
+    free_card()
     return prefill, dec, smoke
+
+
+# ---------------------------------------------------------------------------
+# the vlm path: internvl2-26b at full width and depth; granite-34b's one KV
+# head at a cut depth
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "internvl2-26b"
+# (B, patches, text) of the recorded prefill: the config's 256 patch
+# embeddings ahead of 256 tokens, S = 512 (four 128-key tiles)
+VLM_PREFILL = (4, 256, 256)
+VLM_REQUESTS = 8
+# the launcher's run on the card: new tokens a request
+VLM_LAUNCHER_NEW = 4
+# the v4 logits against the same model at v0 on the card: at most this many
+# times the v4 program's response to one-ulp noise on every site's input
+VLM_V0_TIMES_NOISE = 3.0
+# (B, patches, text) of the card-vs-CPU check, depth cut to 2 layers; the
+# patches cut from 256 to 64 to keep the CPU's forward short
+VLM_E2E = (1, 64, 64)
+MQA_PREFILL = (4, 512)  # (B, S) of granite-34b's recorded prefill
+MQA_REQUESTS = 8
+MQA_V0_TIMES_NOISE = 3.0
+
+
+def log_peak(label: str, t_phase: float) -> None:
+    """The device's peak allocation since the last call, then reset; the
+    seconds since ``t_phase``."""
+    import torch
+
+    log(f"{label}: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+        f"{time.perf_counter() - t_phase:.1f} s into the phase")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def vlm_program(params, cfg, run, dev, level="v4"):
+    """``forward_lm`` with patches compiled on ``dev``, the tokens and the
+    patches as example args (on the CPU: the kernels' plain versions under
+    the same table)."""
+    import numpy as np
+    import torch
+    from repro_torch import marvel
+    from repro_torch.models import transformer as T
+
+    patches = torch.zeros((1, 8, cfg.d_model),
+                          dtype=T.torch_dtype(cfg.param_dtype), device=dev)
+    return marvel.compile(
+        lambda p, t, x: T.forward_lm(p, t, cfg, run, patches=x)[0],
+        np.ones((1, 8), np.int32), patches, params=params, level=level,
+        backend="cuda", device=dev)
+
+
+def timed_forward(label, fn, results, card, reps=3):
+    """The forward's wall time (median of ``reps``) and device busy time
+    against the sum of its kernels' device time, logged."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    busy = device_busy_ms(fn)
+    kernel_ms = sum(r["ms"] for r in results.values())
+    log(f"{label}: {statistics.median(walls):.2f} ms wall (median of {reps}),"
+        f" device busy " + ("not measured" if busy is None else
+                            f"{busy:.3f} ms")
+        + f", of which its kernels' device time {kernel_ms:.3f} ms: "
+        + ", ".join(
+            f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f}, library "
+            + ("null" if r["library_ms"] is None else f"{r['library_ms']:.4f}")
+            + (f", fma form {r['fma_ms']:.3f}" if "fma_ms" in r else "")
+            + ")" for k, r in results.items()) + f" on {card}")
+
+
+def v0_check(label, prog, prog0, inputs, got4, times_noise):
+    """13c / 14c: the v4 logits against the same model at v0 on the card
+    (the plain versions, no launch), within ``times_noise`` times the v4
+    program's response to one-ulp noise on every site's input; a GEMM
+    kernel that drops its residual (planted) must exceed that limit."""
+    import torch
+    from repro_torch.kernels import matmul_epilogue as me
+
+    with counted() as v0_launches:
+        want0 = prog0(*inputs).float().cpu()
+    assert all(v0_launches[k] == 0 for k in KERNELS), v0_launches
+    rel = rel_l2(got4, want0)
+    noise = site_noise_response(prog, inputs, got4, seeds=2)
+    limit = times_noise * noise
+    real = me._launch
+    me._launch = lambda x2, w, es, eb, r2, act, form=None: real(
+        x2, w, es, eb, None, act, form)
+    try:
+        bad = rel_l2(prog(*inputs).float().cpu(), want0)
+    finally:
+        me._launch = real
+    log(f"{label}: logits vs the same model at v0 on the card (plain "
+        f"versions, no launch) relative L2 {rel:.3e}; response to one-ulp "
+        f"noise on every site's input (max of 2) {noise:.3e}, limit "
+        f"{times_noise:g} times that, {limit:.3e}; planted fault 'GEMM "
+        f"kernel without its residual' {bad:.3e}")
+    assert rel <= limit, (rel, limit)
+    assert bad > limit, ("planted no-residual fault passed", bad, limit)
+    del want0
+    torch.cuda.empty_cache()
+
+
+def decode_step_phase(label, decode, state, toks, card):
+    """One recorded decode step after 8 steps of history, every launch
+    held and timed; its wall and device busy time against its kernels'."""
+    import torch
+
+    with torch.inference_mode():
+        for _ in range(8):
+            _, state = decode(state, toks)
+        rec, counts, (step_logits, _) = record_launches(decode, state, toks)
+        check_counts(label, counts)
+        assert torch.isfinite(step_logits).all()
+        dec = hold(rec, ("residual_rmsnorm", "matmul_epilogue"), timed=True)
+        del rec
+        timed_forward(f"{label} step, {LM_SLOTS} slots, launches {counts}",
+                      lambda: decode(state, toks), dec, card, reps=5)
+    return dec
+
+
+def vlm_phases(dev, card):
+    """13a-13f: internvl2-26b at full width and depth in bf16 on the card,
+    its patch prefix through the ``mac_matmul`` site."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.lm_server import static_decode
+    from repro_torch.runtime.server import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    n_progs = len(PROGRAMS)
+    torch.cuda.reset_peak_memory_stats()
+    log(f"{VLM_ARCH}: {torch.cuda.memory_allocated() / 1e9:.2f} GB held on "
+        f"the card before the phase")
+    # 13a) build on the card and compile at v4, tokens and patches as
+    # example args
+    cfg = get_arch(VLM_ARCH)
+    b, npatch, s = VLM_PREFILL
+    run = RunConfig(seq_len=npatch + s, global_batch=b, mode="prefill")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = T.init_params(gen, cfg)
+    torch.cuda.synchronize()
+    log(f"{VLM_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.d_head} over {cfg.n_kv_heads} KV heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.vocab_padded}), "
+        f"{cfg.n_patches} patches: {tree_numel(params) / 1e9:.3f} B "
+        f"parameters in {cfg.param_dtype} drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    t0 = time.perf_counter()
+    prog = vlm_program(params, cfg, run, dev)
+    assert prog.model_class == "dense_lm", prog.model_class
+    for pat in ("flash_attention", "residual_rmsnorm", "matmul_epilogue"):
+        assert prog.resolved_extensions.get(pat) == "cuda", prog.table
+    assert "mac_matmul" not in prog.table, prog.table
+    sites = prog.profile.site_counts
+    want_sites = {"mac_matmul": 2, "matmul_epilogue": 6,
+                  "flash_attention": 1, "residual_rmsnorm": 1}
+    assert all(sites[k] == v for k, v in want_sites.items()), sites
+    log(f"compiled {VLM_ARCH} v4 in {time.perf_counter() - t0:.1f} s: "
+        f"{prog.summary()}")
+    log_peak(f"{VLM_ARCH} drawn and compiled (13a)", t_phase)
+    rng = np.random.default_rng(13)
+
+    # 13b) one recorded prefill forward, every launch held
+    label = f"{VLM_ARCH} v4 prefill"
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (b, s)).astype(
+        np.int32)).to(dev)
+    patches = torch.randn((b, npatch, cfg.d_model), generator=gen,
+                          device=dev).to(torch.bfloat16)
+    rec, counts, logits = record_launches(prog, tokens, patches)
+    check_counts(label, counts)
+    for k in ("matmul_epilogue", "residual_rmsnorm", "flash_attention"):
+        assert counts[k] == sites[k] * cfg.n_layers, (k, counts[k], sites)
+    flash = {(tuple(a[0].shape), tuple(a[1].shape), a[3])
+             for _, a, _ in rec["flash_attention"].values()}
+    assert flash == {((b, npatch + s, cfg.n_kv_heads,
+                       cfg.n_heads // cfg.n_kv_heads, cfg.d_head),
+                      (b, npatch + s, cfg.n_kv_heads, cfg.d_head), True)}, (
+        flash)
+    assert logits.shape == (b, s, cfg.vocab_padded), logits.shape
+    assert torch.isfinite(logits).all(), "non-finite prefill logits"
+    got4 = logits.float().cpu()
+    del logits
+    log(f"{label} B={b}, {npatch} patches + {s} tokens (S={npatch + s}): "
+        f"launches {counts}; the report's sites a layer x {cfg.n_layers} "
+        f"layers: matmul_epilogue {sites['matmul_epilogue']}, "
+        f"residual_rmsnorm {sites['residual_rmsnorm']}, flash_attention "
+        f"{sites['flash_attention']} (causal over the prefix and the text, "
+        f"q {flash}); mac_matmul {sites['mac_matmul']} sites (the patch "
+        f"projection and the MLP's up projection) launch nothing: no kernel "
+        f"in either package; the logits cover the {s} text positions")
+    prefill = hold(rec, ("flash_attention", "residual_rmsnorm",
+                         "matmul_epilogue"), timed=True)
+    del rec
+    torch.cuda.empty_cache()
+    log_peak(f"{label} (13a-13b)", t_phase)
+    timed_forward(f"{label} B={b} S={npatch + s}: forward",
+                  lambda: prog(tokens, patches), prefill, card)
+
+    # 13c) the v4 logits against the same model at v0 on the card; the two
+    # programs share the params
+    prog0 = vlm_program(params, cfg, run, dev, level="v0")
+    v0_check(label, prog, prog0, (tokens, patches), got4, VLM_V0_TIMES_NOISE)
+    del prog0, got4
+    log_peak(f"{label} (13c)", t_phase)
+
+    # 13d) the decode state for LM_SLOTS slots, then one recorded decode
+    # step (dense, from tokens alone, as the reference's)
+    decode = prog.table.bind(
+        lambda st, tk: T.decode_step(params, st, tk, cfg, run))
+    state = T.init_decode_state(params, cfg, run, batch=LM_SLOTS,
+                                max_len=LM_MAX_LEN)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (LM_SLOTS, 1)).astype(
+        np.int32)).to(dev)
+    dec = decode_step_phase(f"{VLM_ARCH} v4 decode", decode, state, toks,
+                            card)
+    del state
+    torch.cuda.empty_cache()
+    log_peak(f"{VLM_ARCH} v4 decode (13d)", t_phase)
+
+    # 13e) the legacy wave loop (the plain versions, from tokens alone as
+    # the reference's loop serves a vlm arch): 8 requests, the streams
+    # against a static greedy decode
+    wrun = RunConfig(seq_len=128, global_batch=LM_SLOTS, mode="decode",
+                     attn_chunk=32)
+    engine = ServeEngine(params, cfg, wrun, batch_slots=LM_SLOTS,
+                         max_len=128)
+    prompts = launcher.lm_prompts(cfg.vocab, VLM_REQUESTS)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=LM_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    with counted() as wave_launches:
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    assert all(wave_launches[k] == 0 for k in KERNELS), wave_launches
+    assert all(r.done and len(r.generated) == LM_MAX_NEW for r in reqs)
+    fresh = T.init_decode_state(params, cfg, wrun, batch=LM_SLOTS,
+                                max_len=128)
+    static = static_decode(
+        lambda st, tk: T.decode_step(params, st, tk, cfg, wrun), fresh,
+        prompts, LM_MAX_NEW, cfg.vocab)
+    for r in reqs:
+        assert r.generated == static[r.uid], r.uid
+    m = engine.metrics()
+    toks_out = sum(len(r.generated) for r in reqs)
+    log(f"{VLM_ARCH} wave loop, {LM_SLOTS} slots, from tokens alone: "
+        f"{VLM_REQUESTS} requests, {toks_out} tokens in {dt:.3f} s: "
+        f"{toks_out / dt:.1f} tokens/s, latency p50 "
+        f"{m['p50_latency_ms']:.1f} ms p99 {m['p99_latency_ms']:.1f} ms, 0 "
+        f"kernel launches (the plain versions); all {len(reqs)} streams "
+        f"equal a static greedy decode, on {card}")
+    del engine, fresh
+    torch.cuda.empty_cache()
+    log_peak(f"{VLM_ARCH} wave loop (13e)", t_phase)
+
+    # 13f) full width, depth cut to 2 layers: the card against the CPU,
+    # with patches
+    cut = cfg.replace(n_layers=2)
+    params2 = {"embed": params["embed"], "ln_f": params["ln_f"],
+               "frontend_proj": params["frontend_proj"],
+               "layers": params["layers"][:2]}
+    eb, ep, es = VLM_E2E
+    e2e_tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (eb, es)).astype(
+        np.int32)).to(dev)
+    e2e_patches = patches[:eb, :ep].contiguous()
+    prog2 = vlm_program(params2, cut, run, dev)
+    cpu_prog = vlm_program(tree_to(params2, "cpu"), cut, run, "cpu")
+    t0 = time.perf_counter()
+    want = cpu_prog(e2e_tokens.cpu(), e2e_patches.cpu())
+    cpu_s = time.perf_counter() - t0
+    got, rel, noise, bad = lm_noise_and_faults(
+        prog2, (e2e_tokens, e2e_patches), want, None)
+    assert got.shape == want.shape == (eb, es, cfg.vocab_padded)
+    assert torch.isfinite(got).all()
+    limit = E2E_LIMIT[f"{VLM_ARCH} 2-layer v4"]
+    log(f"{VLM_ARCH} 2-layer (depth cut from {cfg.n_layers}: a 48-layer f32 "
+        f"CPU forward does not fit the host) v4 B={eb}, {ep} patches + {es} "
+        f"tokens: logits vs the CPU program ({cpu_s:.1f} s there) relative "
+        f"L2 {rel:.3e} (limit {limit:g}); response to one-ulp noise on every "
+        f"site's input (max of 3) {noise:.3e}; planted fault 'flash kernel "
+        f"without its causal mask' {bad:.3e}")
+    assert bad > limit, ("planted no-causal-mask fault passed", bad, limit)
+    assert rel <= limit, rel
+    del prog2, cpu_prog, params2, params, prog, patches, decode
+    retire(n_progs)
+    free_card()
+    log_peak(f"{VLM_ARCH} 2-layer cut vs the CPU (13f)", t_phase)
+
+    # 13e, the launcher: draws its own full-width model once this phase's
+    # is freed; --lm refused with the reason
+    t0 = time.perf_counter()
+    lm = launcher.main(["--arch", VLM_ARCH, "--requests", str(VLM_REQUESTS),
+                        "--max-new", str(VLM_LAUNCHER_NEW)])
+    assert lm["completed"] == VLM_REQUESTS, lm
+    log(f"python -m repro_torch.launch.serve --arch {VLM_ARCH} --requests "
+        f"{VLM_REQUESTS} --max-new {VLM_LAUNCHER_NEW}: served on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        launcher.main(["--arch", VLM_ARCH, "--lm"])
+    except ValueError as e:
+        assert "legacy wave loop" in str(e), e
+        log(f"--arch {VLM_ARCH} --lm refused: {e}")
+    else:
+        raise AssertionError("--lm served a vlm arch")
+    free_card()
+    log_peak(f"{VLM_ARCH} launcher (13e)", t_phase)
+    log(f"{VLM_ARCH} phases: {time.perf_counter() - t_phase:.1f} s")
+    return prefill, dec
+
+
+def mqa_phases(dev, card):
+    """14a-14d: granite-34b at full width (one KV head under 48 query
+    heads) and its depth cut to ``MQA_LAYERS`` in bf16 on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import marvel
+    from repro_torch.configs import RunConfig, get_arch
+    from repro_torch.launch.serve import lm_prompts
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    n_progs = len(PROGRAMS)
+    torch.cuda.reset_peak_memory_stats()
+    # 14a) build on the card at the cut depth and compile at v4
+    full = get_arch(MQA_ARCH)
+    cfg = full.replace(n_layers=MQA_LAYERS)
+    b, s = MQA_PREFILL
+    run = RunConfig(seq_len=s, global_batch=b, mode="prefill")
+    log(f"{MQA_ARCH}: {torch.cuda.memory_allocated() / 1e9:.2f} GB held on "
+        f"the card before the phase")
+    t0 = time.perf_counter()
+    params = T.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = tree_numel(params)
+    per_layer = tree_numel(params["layers"][0])
+    full_n = n_params + (full.n_layers - MQA_LAYERS) * per_layer
+    log(f"{MQA_ARCH}: d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.d_head} over {cfg.n_kv_heads} KV head, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; depth cut from {full.n_layers} to {MQA_LAYERS} layers "
+        f"(all {full.n_layers} come to {full_n / 1e9:.2f} B parameters, "
+        f"{2 * full_n / 1e9:.1f} GB in bf16, over the card's 80 GB): "
+        f"{n_params / 1e9:.3f} B parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    t0 = time.perf_counter()
+    prog = lm_program(params, cfg, run, np.ones((1, 8), np.int32), dev)
+    assert prog.model_class == "dense_lm", prog.model_class
+    for pat in ("flash_attention", "residual_rmsnorm", "matmul_epilogue"):
+        assert prog.resolved_extensions.get(pat) == "cuda", prog.table
+    sites = prog.profile.site_counts
+    log(f"compiled {MQA_ARCH} ({MQA_LAYERS} layers) v4 in "
+        f"{time.perf_counter() - t0:.1f} s: {prog.summary()}")
+    log_peak(f"{MQA_ARCH} drawn and compiled (14a)", t_phase)
+    rng = np.random.default_rng(14)
+
+    # 14b) one recorded prefill forward, every launch held
+    label = f"{MQA_ARCH} v4 prefill"
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab, (b, s)).astype(
+        np.int32)).to(dev)
+    rec, counts, logits = record_launches(prog, tokens)
+    check_counts(label, counts)
+    for k in ("matmul_epilogue", "residual_rmsnorm", "flash_attention"):
+        assert counts[k] == sites[k] * cfg.n_layers, (k, counts[k], sites)
+    flash = {(tuple(a[0].shape), tuple(a[1].shape))
+             for _, a, _ in rec["flash_attention"].values()}
+    assert flash == {((b, s, 1, cfg.n_heads, cfg.d_head),
+                      (b, s, 1, cfg.d_head))}, flash
+    gemms = {(a[0].shape[1], a[1].shape[1])
+             for _, a, _ in rec["matmul_epilogue"].values()}
+    assert (cfg.d_model, cfg.d_head) in gemms, gemms  # wk, wv: N = 128
+    assert (cfg.d_ff, cfg.d_model) in gemms, gemms  # the down projection
+    assert logits.shape == (b, s, cfg.vocab_padded), logits.shape
+    assert torch.isfinite(logits).all(), "non-finite prefill logits"
+    got4 = logits.float().cpu()
+    del logits
+    log(f"{label} ({MQA_LAYERS} layers) B={b} S={s}: launches {counts}; "
+        f"flash with {cfg.n_heads} query heads over one KV head, GEMMs (K, N) "
+        f"{sorted(gemms)}")
+    prefill = hold(rec, ("flash_attention", "residual_rmsnorm",
+                         "matmul_epilogue"), timed=True)
+    del rec
+    torch.cuda.empty_cache()
+    log_peak(f"{label} (14a-14b)", t_phase)
+    timed_forward(f"{label} ({MQA_LAYERS} layers) B={b} S={s}: forward",
+                  lambda: prog(tokens), prefill, card)
+
+    # 14c) the v4 logits against the same model at v0 on the card
+    prog0 = marvel.compile(
+        lambda p, t: T.forward_lm(p, t, cfg, run)[0],
+        np.ones((1, 8), np.int32), params=params, level="v0", device=dev)
+    v0_check(label, prog, prog0, (tokens,), got4, MQA_V0_TIMES_NOISE)
+    del prog0, got4
+    log_peak(f"{label} (14c)", t_phase)
+
+    # 14d) serve through the continuous-batching tier, int8 KV (the scale
+    # planes over one head); then one recorded decode step
+    engine = prog.serve(mode="lm", cfg=cfg, run=run, kv_quant="int8",
+                        slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    prompts = lm_prompts(cfg.vocab, MQA_REQUESTS)
+    mgr = engine.engine.manager
+    placed: list[tuple[int, int, int]] = []  # (uid, bucket, slot)
+    alloc = mgr.alloc
+
+    def placing(uid, total_len):
+        got = alloc(uid, total_len)
+        if got is not None:
+            placed.append((uid, *got))
+        return got
+
+    mgr.alloc = placing
+
+    async def serve():
+        async with engine:
+            engine.warmup()
+            misses = engine.engine.compile_misses
+            steps = engine.engine.decode_steps
+            with counted() as launches:
+                t0 = time.perf_counter()
+                done = await engine.submit_wave(prompts,
+                                                max_new_tokens=LM_MAX_NEW)
+                dt = time.perf_counter() - t0
+            return (done, dt, launches, engine.engine.decode_steps - steps,
+                    engine.engine.compile_misses - misses, engine.metrics())
+
+    done, dt, launches, steps, new_misses, m = asyncio.run(serve())
+    assert len(done) == MQA_REQUESTS and all(
+        r.done and r.error is None and len(r.generated) == LM_MAX_NEW
+        for r in done), "granite-34b requests failed"
+    assert m["errors"] == 0 and new_misses == 0, (m, new_misses)
+    check_counts(f"{MQA_ARCH} v4 decode", launches, steps)
+    scale = next(iter(mgr.pools.values())).state["cache"]["k_scale"]
+    assert scale.shape[-1] == 1, scale.shape
+    toks_out = sum(len(r.generated) for r in done)
+    log(f"{MQA_ARCH} ({MQA_LAYERS} layers) v4 serve, int8 KV (scale planes "
+        f"{tuple(scale.shape)}: one head), {LM_SLOTS} slots, buckets "
+        f"{mgr.bucket_lens}: {MQA_REQUESTS} requests, {toks_out} tokens in "
+        f"{dt:.3f} s: {toks_out / dt:.1f} tokens/s, TTFT p50 "
+        f"{m['ttft_p50_ms']:.1f} ms p99 {m['ttft_p99_ms']:.1f} ms, "
+        f"inter-token p50 {m['intertoken_p50_ms']:.2f} ms p99 "
+        f"{m['intertoken_p99_ms']:.2f} ms, {steps} decode steps, 0 compile "
+        f"misses after warmup, on {card}")
+    checked = serve_streams_check(engine.engine, params, cfg, run, prompts,
+                                  placed, done, kv_quant="int8")
+    assert checked == MQA_REQUESTS, checked
+    log(f"{MQA_ARCH} v4 serve: all {checked} request streams equal a static "
+        f"decode of the same prompts from a fresh state in the same lanes")
+    del engine
+    torch.cuda.empty_cache()
+    decode = prog.table.bind(
+        lambda st, tk: T.decode_step(params, st, tk, cfg, run))
+    state = T.init_decode_state(params, cfg, run, batch=LM_SLOTS,
+                                max_len=LM_MAX_LEN, kv_quant="int8")
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (LM_SLOTS, 1)).astype(
+        np.int32)).to(dev)
+    dec = decode_step_phase(f"{MQA_ARCH} v4 decode", decode, state, toks,
+                            card)
+    del state, decode, params, prog
+    retire(n_progs)
+    free_card()
+    log_peak(f"{MQA_ARCH} serve and decode step (14d)", t_phase)
+    log(f"{MQA_ARCH} phases: {time.perf_counter() - t_phase:.1f} s")
+    return prefill, dec
 
 
 # ---------------------------------------------------------------------------
@@ -3754,6 +4342,7 @@ def main() -> int:
 
     # 6) the dense-LM path: qwen3-8b at full width
     prefill, dec, _, lm_launches = lm_phases(dev, card)
+    free_card()
     results.update({k: v for k, v in prefill.items()
                     if KERNELS[k][3] == f"{LM_ARCH} v4 prefill"})
 
@@ -3764,12 +4353,23 @@ def main() -> int:
                     if KERNELS[k][3] == f"{RWKV_ARCH} v4 prefill"})
     mac_results, mac_launches = mac_phase(dev, card)
     results.update(mac_results)
+    free_card()
 
     # 11) the hybrid_lm path: hymba-1.5b at full width; the ssm_lm stack
     hy_prefill, hy_dec = hymba_phases(dev, card)
 
     # 12) the enc_dec path: whisper-tiny at full width and depth
     wh_prefill, wh_dec, wh_smoke = whisper_phases(dev, card)
+
+    # 13) the vlm path: internvl2-26b at full width and depth
+    vl_prefill, vl_dec = vlm_phases(dev, card)
+    free_card()
+
+    # 14) granite-34b's one KV head at full width, its depth cut
+    mq_prefill, mq_dec = mqa_phases(dev, card)
+    free_card()
+    log(f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held on the card "
+        f"before the supervised phases")
 
     # 10) supervised serving: in-process workers, process-isolated workers
     # sharing the card (ResNet50 and qwen3-8b)
@@ -3804,6 +4404,10 @@ def main() -> int:
                 "library_ms": agg["library_ms"],
                 **({"pair_ms": agg["pair_ms"]} if "pair_ms" in agg else {})}
 
+    vl_prefill_label = (f"{VLM_ARCH} v4 prefill B=%d, %d patches + %d "
+                        "tokens" % VLM_PREFILL)
+    mq_prefill_label = (f"{MQA_ARCH} {MQA_LAYERS}-layer v4 prefill "
+                        "B=%d S=%d" % MQA_PREFILL)
     # the tensor-core forms, on the forwards that run them
     tensor_core = {
         "matmul_epilogue": [
@@ -3821,7 +4425,16 @@ def main() -> int:
                        % WHISPER_PREFILL, wh_prefill["matmul_epilogue"],
                        "wgmma"),
             form_entry(f"{WHISPER_ARCH} v4 decode step, {LM_SLOTS} slots",
-                       wh_dec["matmul_epilogue"], "decode")],
+                       wh_dec["matmul_epilogue"], "decode"),
+            form_entry(vl_prefill_label, vl_prefill["matmul_epilogue"],
+                       "wgmma"),
+            form_entry(f"{VLM_ARCH} v4 decode step, {LM_SLOTS} slots",
+                       vl_dec["matmul_epilogue"], "decode"),
+            form_entry(mq_prefill_label, mq_prefill["matmul_epilogue"],
+                       "wgmma"),
+            form_entry(f"{MQA_ARCH} {MQA_LAYERS}-layer v4 decode step, "
+                       f"{LM_SLOTS} slots", mq_dec["matmul_epilogue"],
+                       "decode")],
         "flash_attention": [
             form_entry(f"{LM_ARCH} v4 prefill", prefill["flash_attention"],
                        "wgmma"),
@@ -3830,8 +4443,21 @@ def main() -> int:
                        "wgmma"),
             form_entry(f"{WHISPER_ARCH} smoke v4 B=%d S=%d" % WHISPER_SMOKE
                        + " (non-causal Sq != Skv launches among them)",
-                       wh_smoke["flash_attention"], "fma")],
+                       wh_smoke["flash_attention"], "fma"),
+            form_entry(vl_prefill_label, vl_prefill["flash_attention"],
+                       "wgmma"),
+            form_entry(mq_prefill_label, mq_prefill["flash_attention"],
+                       "wgmma")],
     }
+    # the norm on internvl2-26b's and granite-34b's forwards, rows of 6144
+    # (their GEMMs and flash attention are under tensor_core)
+    wide = {"residual_rmsnorm": [
+        form_entry(vl_prefill_label, vl_prefill["residual_rmsnorm"], "rows"),
+        form_entry(f"{VLM_ARCH} v4 decode step, {LM_SLOTS} slots",
+                   vl_dec["residual_rmsnorm"], "rows"),
+        form_entry(mq_prefill_label, mq_prefill["residual_rmsnorm"], "rows"),
+        form_entry(f"{MQA_ARCH} {MQA_LAYERS}-layer v4 decode step, "
+                   f"{LM_SLOTS} slots", mq_dec["residual_rmsnorm"], "rows")]}
     # the norm on whisper-tiny's forwards (its GEMMs and flash attention
     # are under tensor_core)
     enc_dec = {"residual_rmsnorm": [
@@ -3886,11 +4512,14 @@ def main() -> int:
             "tensor_core_forms": tensor_core.get(name, []),
             "hybrid_forwards": hybrid.get(name, []),
             "enc_dec_forwards": enc_dec.get(name, []),
+            "vlm_and_mqa_forwards": wide.get(name, []),
             "cnn_forwards": cnn_forwards.get(name, []),
         })
-    fell_back = [p.summary() for p in PROGRAMS if p.rewrite_fallbacks]
-    log(f"{len(PROGRAMS)} programs compiled, "
-        f"{sum(p.rewrite_baked for p in PROGRAMS)} rewritten at compile, "
+    records = RETIRED + [(p.summary(), p.rewrite_fallbacks, p.rewrite_baked)
+                         for p in PROGRAMS]
+    fell_back = [summary for summary, fallbacks, _ in records if fallbacks]
+    log(f"{len(records)} programs compiled, "
+        f"{sum(baked for *_, baked in records)} rewritten at compile, "
         f"{len(fell_back)} with a bucket whose rewrite failed")
     assert not fell_back, fell_back
     log("(kernel times are per forward, the one each entry names: the sum "

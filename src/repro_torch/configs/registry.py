@@ -2,9 +2,9 @@
 copy of the reference's ``configs/registry.py`` for the families the port
 serves).
 
-The port serves the ``enc_dec``, ``dense``, ``rwkv`` and ``hybrid`` families
-so far; :func:`get_arch` names the reference's other archs and refuses them
-with the reason.
+The port serves the ``enc_dec``, ``vlm``, ``dense``, ``rwkv`` and ``hybrid``
+families so far; :func:`get_arch` names the reference's other archs (the
+``moe`` family) and refuses them with the reason.
 """
 from __future__ import annotations
 
@@ -25,10 +25,10 @@ ARCH_FAMILIES = {
     "hymba-1.5b": "hybrid",
     "rwkv6-1.6b": "rwkv",
 }
-SERVED_FAMILIES = ("enc_dec", "dense", "rwkv", "hybrid")
+SERVED_FAMILIES = ("enc_dec", "vlm", "dense", "rwkv", "hybrid")
 # the configs copied, in the reference's order
-ARCH_IDS = ["whisper-tiny", "granite-3-2b", "qwen3-8b", "starcoder2-3b",
-            "hymba-1.5b", "rwkv6-1.6b"]
+ARCH_IDS = ["whisper-tiny", "internvl2-26b", "granite-3-2b", "granite-34b",
+            "qwen3-8b", "starcoder2-3b", "hymba-1.5b", "rwkv6-1.6b"]
 
 
 def _module_name(arch_id: str) -> str:
@@ -69,4 +69,6 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
         kw.update(rwkv_head_dim=32, d_model=128, d_ff=256)
     if cfg.family == "enc_dec":
         kw.update(n_enc_layers=2, n_frames=16)
+    if cfg.family == "vlm":
+        kw.update(n_patches=8)
     return cfg.replace(**kw)

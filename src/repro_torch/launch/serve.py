@@ -28,9 +28,14 @@ workers share the card): a ``kill -9`` costs one worker, never the fleet.
 ``--arch`` without ``--lm`` runs the legacy wave loop
 (:class:`~repro_torch.runtime.server.ServeEngine`, the plain versions), as
 the reference's launcher does.  The enc_dec family (whisper-tiny) is served
-there alone, each lane against its own frames drawn from the seed::
+there alone, each lane against its own frames drawn from the seed, and so is
+the vlm family (internvl2-26b), which decodes from tokens alone, as the
+reference's wave loop does (it passes no patches)::
 
     python -m repro_torch.launch.serve --arch whisper-tiny --requests 8
+    python -m repro_torch.launch.serve --arch internvl2-26b --requests 8
+
+granite-34b is served by every tier, as the other dense archs are.
 """
 from __future__ import annotations
 
@@ -175,17 +180,29 @@ def serve_lm_supervised(args, engine_kwargs) -> dict:
     return asyncio.run(main())
 
 
-def refuse_enc_dec(arch: str) -> None:
-    """The continuous-batching tier builds its decode states without
-    frames (as the reference's does), so an enc_dec arch is refused."""
+# the families whose forward takes a per-request input beside the tokens,
+# which the continuous-batching tier does not take: what each needs
+CONTINUOUS_TIER_REFUSED = {
+    "enc_dec": "decodes against per-request audio frames",
+    "vlm": "prefills per-request patch embeddings (patches=) ahead of its "
+           "text",
+}
+
+
+def refuse_continuous_tier(arch: str) -> None:
+    """The continuous-batching tier compiles the forward from tokens alone
+    and builds its decode states without frames, so an enc_dec or vlm arch
+    is refused with the reason (the reference's tier fails on both: it has
+    no frames for enc_dec, and its vlm forward reaches the patch projection
+    with ``patches=None``); the legacy wave loop serves them."""
     from repro_torch.configs import get_arch
 
     family = get_arch(arch).family
-    if family == "enc_dec":
+    if family in CONTINUOUS_TIER_REFUSED:
         raise ValueError(
-            f"{arch} ({family} family) decodes against per-request audio "
-            "frames, which the continuous-batching tier (--lm, --supervised) "
-            "does not take; serve it through the legacy wave loop: --arch "
+            f"{arch} ({family} family) {CONTINUOUS_TIER_REFUSED[family]}, "
+            "which the continuous-batching tier (--lm, --supervised) does "
+            "not take; serve it through the legacy wave loop: --arch "
             f"{arch} without --lm")
 
 
@@ -194,7 +211,7 @@ def serve_lm(args) -> dict:
     ``--supervised``."""
     from repro_torch.runtime.actor import lm_program_factory
 
-    refuse_enc_dec(args.arch)
+    refuse_continuous_tier(args.arch)
     engine_kwargs = dict(slots=args.slots, max_len=args.max_len,
                          kv_quant=args.kv_quant)
     if args.supervised:
@@ -233,7 +250,9 @@ def serve_wave_loop(args) -> dict:
     """The legacy wave loop: a caller-driven
     :class:`~repro_torch.runtime.server.ServeEngine` over the plain versions,
     random weights from seed 0 on the device; an enc_dec arch's frames (one
-    (n_frames, d_model) bf16 draw per slot) follow from the same seed."""
+    (n_frames, d_model) bf16 draw per slot) follow from the same seed, and a
+    vlm arch decodes from tokens alone (the reference's loop passes no
+    patches)."""
     from repro_torch import marvel
     from repro_torch.configs import RunConfig, get_arch, smoke_variant
     from repro_torch.models import transformer as T
@@ -274,10 +293,11 @@ def main(argv=None):
                            "resnet50, mobilenetv2, densenet121)")
     what.add_argument("--arch",
                       help="LM to serve (qwen3-8b, granite-3-2b, "
-                           "starcoder2-3b, hymba-1.5b, rwkv6-1.6b, "
-                           "whisper-tiny): the legacy wave loop, or the "
-                           "continuous-batching tier with --lm (not "
-                           "whisper-tiny)")
+                           "granite-34b, starcoder2-3b, hymba-1.5b, "
+                           "rwkv6-1.6b, whisper-tiny, internvl2-26b): the "
+                           "legacy wave loop, or the continuous-batching "
+                           "tier with --lm (not whisper-tiny or "
+                           "internvl2-26b)")
     ap.add_argument("--lm", action="store_true",
                     help="serve --arch through the continuous-batching tier")
     ap.add_argument("--smoke", action="store_true",

@@ -169,10 +169,11 @@ class MarvelProgram:
             from repro_torch.kernels import build
 
             build.lib()  # kernels compile at deploy, not on a live request
+        fn = self.fn  # not self: the cache holding ``run`` is the program's
 
         def run(*a):
             with torch.inference_mode():
-                return self.fn(*a)
+                return fn(*a)
 
         return run
 

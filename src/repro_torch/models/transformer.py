@@ -1,6 +1,7 @@
 """LM assembly for the dense family (granite, qwen3, starcoder2), the rwkv
-family (rwkv6), the hybrid family (hymba) and the enc_dec family (whisper),
-the counterpart of the reference's ``models/transformer.py``.
+family (rwkv6), the hybrid family (hymba), the enc_dec family (whisper) and
+the vlm family (internvl2), the counterpart of the reference's
+``models/transformer.py``.
 
 Params are a dict: ``{"embed": {"table": (V, d)}, "ln_f": (d,), "layers":
 [one dict per layer]}``; a dense layer holds ``ln1``, ``attn``, ``ln2`` and
@@ -12,8 +13,14 @@ after the embedding.  enc_dec adds ``enc_layers`` (dense layers, run
 non-causal over the frames) and ``ln_enc``; its decoder layers hold ``ln1``,
 ``attn``, ``lnx``, ``xattn`` (the cross-attention's projections), ``ln2``
 and ``mlp``, and its forward takes ``frames`` (B, F, d), the stubbed audio
-frontend's precomputed frame embeddings.  The reference stacks the layers on
-a leading axis and scans them; here a list runs in a Python loop
+frontend's precomputed frame embeddings.  vlm is the dense stack with a
+top-level ``frontend_proj`` (d, d); its forward takes ``patches`` (B, P, d),
+the stubbed vision frontend's precomputed patch embeddings, projects them
+through the ``mac_matmul`` site and runs the causal stack over the P patches
+followed by the text, and the logits cover the text alone.  Its decode step
+is the dense one, from tokens alone, as the reference's.  The reference
+stacks the layers on a leading axis and scans them; here a list runs in a
+Python loop
 (:func:`repro_torch.core.profiler.scan`, which the profiler sees once per
 program site, as the reference's traced scan body).  :func:`params_from_jax`
 converts the reference's tree.
@@ -33,7 +40,7 @@ once).  rwkv: the recurrent state ``{"s": (L, B, H, N, N) f32, "tm_prev",
 "cm_prev": (L, B, d)}``, with no position axis, in new tensors.  Either way
 the step returns a new ``index``.
 
-The other families (moe, mla, vlm) come with later slices.
+The other families (moe, mla) come with later slices.
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import ssm as SSM
 
-FAMILIES = ("dense", "rwkv", "hybrid", "enc_dec")
+FAMILIES = ("dense", "rwkv", "hybrid", "enc_dec", "vlm")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -131,6 +138,9 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
         layer_init = _dense_layer_init
     params["layers"] = [layer_init(gen, cfg, dtype, device)
                         for _ in range(cfg.n_layers)]
+    if cfg.family == "vlm":
+        params["frontend_proj"] = L.dense_init(
+            gen, (cfg.d_model, cfg.d_model), dtype, device=device)
     return params
 
 
@@ -240,15 +250,31 @@ def _encode(params, frames, cfg, run):
     return L.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
+def _patch_prefix(params, patches, x, cfg):
+    """The vlm prefix: the patch embeddings (B, P, d) projected through
+    ``frontend_proj`` at the ``mac_matmul`` site, cast to the embeddings'
+    type and put in front of the token embeddings ``x``."""
+    if patches is None:
+        raise ValueError(f"{cfg.name} ({cfg.family}) needs patches=: the "
+                         "(B, n_patches, d_model) patch embeddings")
+    pe = L.mac_matmul(patches, params["frontend_proj"])
+    return torch.cat([pe.to(x.dtype), x], dim=1)
+
+
 def forward_hidden(params, tokens, cfg: ArchConfig, run: RunConfig,
-                   frames=None):
-    """tokens: (B, S) -> (hidden (B, S, d), aux, prefix_len); enc_dec takes
-    ``frames`` (B, F, d)."""
+                   frames=None, patches=None):
+    """tokens: (B, S) -> (hidden (B, prefix + S, d), aux, prefix_len);
+    enc_dec takes ``frames`` (B, F, d), vlm ``patches`` (B, P, d), whose P
+    rows lead the hidden states (``prefix_len`` = P)."""
     _check_family(cfg)
     # the reference encodes the frames before it embeds the tokens
     enc_out = (_encode(params, frames, cfg, run) if cfg.family == "enc_dec"
                else None)
     x = L.embed_lookup(params["embed"], tokens)
+    prefix = 0
+    if cfg.family == "vlm":
+        x = _patch_prefix(params, patches, x, cfg)
+        prefix = patches.shape[1]
     if cfg.family == "rwkv":
         x = L.layer_norm(x, params["ln0_s"], params["ln0_b"])
         body = lambda p, x: RWKV.rwkv_block(  # noqa: E731
@@ -266,13 +292,20 @@ def forward_hidden(params, tokens, cfg: ArchConfig, run: RunConfig,
             p, x, cfg, run, positions)
     x = profiler.scan(body, x, params["layers"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.rms_norm(x, params["ln_f"], cfg.norm_eps), aux, 0
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps), aux, prefix
 
 
-def forward_lm(params, tokens, cfg: ArchConfig, run: RunConfig, frames=None):
+def forward_lm(params, tokens, cfg: ArchConfig, run: RunConfig, frames=None,
+               patches=None):
     """tokens: (B, S) -> (logits (B, S, V_padded), aux); enc_dec takes
-    ``frames`` (B, F, d)."""
-    hidden, aux, _ = forward_hidden(params, tokens, cfg, run, frames=frames)
+    ``frames`` (B, F, d), vlm ``patches`` (B, P, d) (the logits of the text
+    positions alone)."""
+    hidden, aux, prefix = forward_hidden(params, tokens, cfg, run,
+                                         frames=frames, patches=patches)
+    if prefix:
+        # contiguous, so the logits fold into one GEMM over the table (a
+        # strided 3-D operand takes a batched product over B copies of it)
+        hidden = hidden[:, prefix:].contiguous()
     return L.embed_logits(params["embed"], hidden), aux
 
 

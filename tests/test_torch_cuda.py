@@ -42,16 +42,18 @@ address, which takes the scalar form; the global average at H*W = 1, 4
 The LM kernels: ``residual_rmsnorm`` on the grid's rows (33 x 96, 130 x
 257), qwen3-8b's (8 and 2048 rows of 4096, the scale in bf16 or f32),
 hymba-1.5b's (8 and 2048 rows of 1600), whisper-tiny's (8, 1792 and 6000
-rows of 384), the next slices' 6144 (8 and 2048 rows), 8200 (beyond the
+rows of 384), internvl2-26b's and granite-34b's 6144 (8, 128 and 2048
+rows), 8200 (beyond the
 rows form's registers) and rows one element past an aligned address, each
 launch in the form ``norm_plan`` gives (read from ``launches_by_form``),
 and one wrapper call traced with ``torch.profiler``: one device kernel,
 no cast of the scale before it;
 ``flash_attention`` on the grid's grouped and ragged cases, qwen3-8b's heads
 and non-causal cross-attention with Sq != Skv in both forms (7 and 40
-queries over 16 keys in f32, 448 over 1536 at d = 64 in bf16), and the GEMM
-on bf16 operands, whisper-tiny's shapes with bias, gelu and residual among
-them.  In f32 the tolerance is ``tol_from_acc(float32, K)`` (sum order
+queries over 16 keys in f32, 448 over 1536 at d = 64 in bf16), heads of
+128 with 6 (internvl2-26b) and 48 (granite-34b, one KV head) query heads a
+KV head, and the GEMM on bf16 operands, whisper-tiny's shapes with bias,
+gelu and residual among them, and the 6144-wide LMs' (N = 128, K = 24576).  In f32 the tolerance is ``tol_from_acc(float32, K)`` (sum order
 over the reduction K); in bf16 the outputs may differ by one bf16 rounding
 (2**-7 relative), and flash attention's probabilities too (2**-7 of
 ``mean|v|`` absolute), where the two sum orders straddle a rounding edge.
@@ -642,11 +644,14 @@ RMSNORM_CASES = [
     dict(rows=6000, d=384, dtype="bfloat16"),
     dict(rows=1792, d=384, dtype="bfloat16"),
     dict(rows=8, d=384, dtype="bfloat16"),
-    # bf16 rows with an f32 scale; the next slices' width 6144; a width
-    # beyond the rows form's registers and a view off 16-byte alignment
-    # (both the scalar form)
+    # bf16 rows with an f32 scale; internvl2-26b's and granite-34b's width
+    # 6144 (norm_plan: the rows form, 256 threads a row, 3 vectors each, one
+    # row a block) at a decode step's 8 rows, the 2-layer cut's 128 and a
+    # B = 4, S = 512 prefill's 2048; a width beyond the rows form's
+    # registers and a view off 16-byte alignment (both the scalar form)
     dict(rows=2048, d=4096, dtype="bfloat16", scale="float32"),
     dict(rows=8, d=6144, dtype="bfloat16"),
+    dict(rows=128, d=6144, dtype="bfloat16"),
     dict(rows=2048, d=6144, dtype="bfloat16"),
     dict(rows=8, d=8200, dtype="bfloat16"),
     dict(rows=130, d=4096, dtype="bfloat16", offset=1),
@@ -722,6 +727,16 @@ FLASH_CASES = [
     dict(sq=40, skv=16, dh=32, causal=False, form="fma"),
     dict(b=2, sq=448, skv=1536, kheads=6, g=1, dh=64, causal=False,
          dtype="bfloat16", form="wgmma"),
+    # heads of 128 in the wgmma form: internvl2-26b's 6 query heads a KV
+    # head (8 KV heads) over 256 patches + 256 tokens, and granite-34b's
+    # 48 query heads over its one KV head (MQA), at B = 4, S = 512 and at a
+    # ragged 320
+    dict(b=4, sq=512, kheads=8, g=6, dh=128, dtype="bfloat16",
+         form="wgmma"),
+    dict(b=4, sq=512, kheads=1, g=48, dh=128, dtype="bfloat16",
+         form="wgmma"),
+    dict(b=1, sq=320, kheads=1, g=48, dh=128, dtype="bfloat16",
+         form="wgmma"),
 ]
 
 
@@ -909,16 +924,13 @@ HYMBA_GEMM_CASES = [(2048, 1600, 1600), (2048, 1600, 320), (2048, 3200, 1600),
                     (2048, 5504, 1600), (8, 1600, 1600)]
 
 
-@pytest.mark.parametrize("with_res", [False, True], ids=["plain", "residual"])
-@pytest.mark.parametrize("mkn", HYMBA_GEMM_CASES, ids=str)
-def test_matmul_epilogue_hymba_shapes(card, mkn, with_res):
-    """bf16 GEMMs at hymba-1.5b's shapes through the form each takes
-    (decode at M = 8, wgmma at 2048), with and without a bf16 residual:
-    within :func:`_gemm_case_tol` of the plain f32 version, every column of
-    the ragged last tile included."""
+def _hold_bf16_gemm(card, m, k, n, with_res):
+    """One bf16 GEMM, with or without a bf16 residual, through the form M
+    gives it (decode up to ``DECODE_M_MAX``, wgmma above): within
+    :func:`_gemm_case_tol` of the plain f32 version, every column of a
+    ragged last tile included."""
     from repro_torch.kernels import matmul_epilogue as me
 
-    m, k, n = mkn
     r = _rng(m + k + n)
     bf = torch.bfloat16
     x = torch.from_numpy(r.standard_normal((m, k), np.float32)).to(card, bf)
@@ -938,6 +950,35 @@ def test_matmul_epilogue_hymba_shapes(card, mkn, with_res):
     tol = _gemm_case_tol(x2, w, want, es, eb, r2)
     assert (err <= tol).all(), (err / tol).max().item()
     assert (err[:, -(n % 128 or 128):] <= tol[:, -(n % 128 or 128):]).all()
+
+
+@pytest.mark.parametrize("with_res", [False, True], ids=["plain", "residual"])
+@pytest.mark.parametrize("mkn", HYMBA_GEMM_CASES, ids=str)
+def test_matmul_epilogue_hymba_shapes(card, mkn, with_res):
+    """bf16 GEMMs at hymba-1.5b's shapes through the form each takes
+    (decode at M = 8, wgmma at 2048), with and without a bf16 residual:
+    within :func:`_gemm_case_tol` of the plain f32 version, every column of
+    the ragged last tile included."""
+    _hold_bf16_gemm(card, *mkn, with_res)
+
+
+# granite-34b's and internvl2-26b's GEMMs (M, K, N, residual): a B = 4,
+# S = 512 prefill's 2048 rows and a decode step's 8; granite-34b's K and V
+# projections N = 128 wide (one wgmma column tile), its FFN's down
+# projection K = 24576 deep, internvl2-26b's K and V 1024 wide and its down
+# projection K = 16384; the down projections carry the residual
+WIDE_GEMM_CASES = [(2048, 6144, 128, False), (8, 6144, 128, False),
+                   (2048, 24576, 6144, True), (8, 24576, 6144, True),
+                   (2048, 6144, 24576, False), (2048, 6144, 1024, False),
+                   (8, 16384, 6144, True)]
+
+
+@pytest.mark.parametrize("case", WIDE_GEMM_CASES, ids=str)
+def test_matmul_epilogue_6144_wide_shapes(card, case):
+    """bf16 GEMMs at the 6144-wide LMs' shapes through the form each takes
+    (decode at M = 8, wgmma at 2048): within :func:`_gemm_case_tol` of the
+    plain f32 version."""
+    _hold_bf16_gemm(card, *case)
 
 
 # whisper-tiny's GEMMs (M, K, N, act, residual): the encoder's 4 x 1500

@@ -16,7 +16,7 @@ model's site-derived inputs and loop trips equal, the rv32 ladder within
 batching engine's greedy streams against the reference engine's (f32
 params, so bf16 ties cannot decide an argmax), with and without int8 KV.
 One starcoder2-3b smoke forward covers the non-gated GELU MLP with biases.
-The GEMM and attention sites of the four LMs at full width (recorded over
+The GEMM and attention sites of six LMs at full width (recorded over
 fake tensors) take the tensor-core forms of their kernels.
 ``chip_smoke.flash_launch_reading`` (the card's launch-level reading of
 flash attention) is held at a small shape: the honest kernel's rounding
@@ -69,22 +69,27 @@ RUN = dict(seq_len=32, global_batch=4, mode="decode", attn_chunk=16)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-2b", "starcoder2-3b",
-                                  "rwkv6-1.6b"])
+                                  "rwkv6-1.6b", "granite-34b",
+                                  "internvl2-26b"])
 def test_lm_kernels_take_the_tensor_core_forms(arch):
-    """Every GEMM and attention site of the four LMs at full width
-    (recorded over fake tensors) is bf16 in shapes the tensor-core forms
-    take: the GEMM's decode form at the decode step's 1..16 slots, its
-    wgmma form at the serve's prefill buckets and the B = 4, S = 512
-    prefill; flash attention's wgmma form (heads of 64 or 128)."""
+    """Every GEMM and attention site of the LMs at full width (recorded
+    over fake tensors; internvl2-26b with bf16 patches) is bf16 in shapes
+    the tensor-core forms take: the GEMM's decode form at the decode step's
+    1..16 slots, its wgmma form at the serve's prefill buckets and the B =
+    4, S = 512 prefill (granite-34b's K/V projections N = 128 wide among
+    them); flash attention's wgmma form (heads of 64 or 128)."""
     from repro_torch.core import profiler
     from repro_torch.kernels import matmul_epilogue as tme
 
     cfg = get_arch(arch)
     run = RunConfig(seq_len=8, global_batch=1, mode="prefill")
     gen = torch.Generator().manual_seed(0)
+    patches = (torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
+               if cfg.family == "vlm" else None)
     sites = profiler.site_shapes(
         lambda: T.forward_lm(T.init_params(gen, cfg),
-                             torch.zeros((1, 8), dtype=torch.int32), cfg, run),
+                             torch.zeros((1, 8), dtype=torch.int32), cfg, run,
+                             patches=patches),
         "matmul_epilogue", "flash_attention")
     gemms = [(w, dt) for p, (_, dt), (w, _) in sites if p == "matmul_epilogue"]
     heads = [(q, k, dt) for p, (q, dt), (k, _) in sites

@@ -61,6 +61,16 @@ def test_norm_plan(case):
     assert p.grid * rpb >= c["rows"] > (p.grid - 1) * rpb
 
 
+@pytest.mark.parametrize("rows", [8, 128, 2048])
+def test_norm_plan_at_the_6144_wide_lms(rows):
+    """internvl2-26b's and granite-34b's rows of 6144 (a decode step, the
+    2-layer cut's prefill, a B = 4, S = 512 prefill): the rows form, a
+    group of 256 threads a row, 3 vectors each, one row a block."""
+    p = rr.norm_plan(rows, 6144, BF16, BF16, True)
+    assert (p.form, p.threads, p.rows_per_block, p.vecs, p.grid,
+            p.cluster) == ("rows", 256, 1, 3, rows, 1)
+
+
 def test_norm_plan_constants_match_the_kernel():
     """The plan's limits and form codes are the CUDA source's."""
     src = (Path(rr.__file__).parents[1] / "csrc"

@@ -118,20 +118,62 @@ def test_lm_launcher_serves_the_smoke_variant_on_cpu(capsys, monkeypatch):
         tserve.main(["--arch", "qwen3-8b", "--smoke", "--lm"])
 
 
+def test_dropped_program_is_freed_without_a_collection():
+    """A compiled program sits in no reference cycle: once the caller drops
+    it (its buckets built, its report made), it and its bound parameters
+    go at once, not at the garbage collector's next pass, so a model's
+    device memory is back before the next one is drawn."""
+    import gc
+    import weakref
+
+    import numpy as np
+    from repro_torch.configs import RunConfig, get_arch, smoke_variant
+    from repro_torch.models import transformer as T
+
+    cfg = smoke_variant(get_arch("qwen3-8b"))
+    run = RunConfig(seq_len=8, global_batch=1)
+    params = T.init_params(torch.Generator().manual_seed(0), cfg)
+
+    def compiled():
+        return marvel.compile(
+            lambda p, t: T.forward_lm(p, t, cfg, run)[0],
+            np.ones((1, 8), np.int32), params=params, level="v4",
+            device="cpu")
+
+    # the process's first profile imports inside torch's FakeTensorMode,
+    # whose import frames (the first compile's among them) torch keeps
+    compiled()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        prog = compiled()
+        prog(np.ones((2, 8), np.int32))  # a second bucket
+        assert prog.cache_misses == 2
+        ref = weakref.ref(prog)
+        del prog
+        assert ref() is None
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def test_arch_registry_serves_the_dense_family_only():
-    """The served archs (the dense family, whisper-tiny, hymba and rwkv6);
-    an arch of a family the port does not serve yet is refused with its
-    family named."""
+    """The served archs (the dense family, whisper-tiny, internvl2-26b,
+    hymba and rwkv6); an arch of a family the port does not serve yet is
+    refused with its family named."""
     from repro_torch.configs import get_arch, list_archs
 
-    assert list_archs() == ["whisper-tiny", "granite-3-2b", "qwen3-8b",
-                            "starcoder2-3b", "hymba-1.5b", "rwkv6-1.6b"]
+    assert list_archs() == ["whisper-tiny", "internvl2-26b", "granite-3-2b",
+                            "granite-34b", "qwen3-8b", "starcoder2-3b",
+                            "hymba-1.5b", "rwkv6-1.6b"]
     assert get_arch("qwen3-8b").family == "dense"
+    assert get_arch("granite-34b").family == "dense"
     assert get_arch("rwkv6-1.6b").family == "rwkv"
     assert get_arch("hymba-1.5b").family == "hybrid"
     assert get_arch("whisper-tiny").family == "enc_dec"
-    with pytest.raises(NotImplementedError, match="vlm"):
-        get_arch("internvl2-26b")
+    assert get_arch("internvl2-26b").family == "vlm"
+    with pytest.raises(NotImplementedError, match="moe"):
+        get_arch("llama4-maverick-400b-a17b")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
